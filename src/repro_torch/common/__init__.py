@@ -1,0 +1,1 @@
+"""Framework helpers shared by the port's modules."""

@@ -1,0 +1,180 @@
+"""NavixIndex -- the single-index handle (port of ``repro.core.navix``).
+
+    idx, build_stats = NavixIndex.create(vectors, NavixConfig())   # on CUDA
+    res = idx.search_many(Q, k=100, semimask=mask)   # adaptive-local
+
+The index lives on one device, chosen at ``create`` / ``from_graph``: CUDA
+by default, the CPU only when the caller passes ``device="cpu"``. Searches
+run where the index lives; queries and semimasks are moved there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.device import resolve_device
+from repro_torch.core import bitset
+from repro_torch.core.build import BuildParams, BuildStats, build
+from repro_torch.core.distances import (brute_force_topk, normalize,
+                                        validate_metric)
+from repro_torch.core.graph import HnswGraph
+from repro_torch.core.heuristics import Heuristic
+from repro_torch.core.search import SearchParams, SearchResult, search
+from repro_torch.core.search_batch import search_many
+
+
+class NavixConfig(NamedTuple):
+    m_u: int = 16                 # paper: M=32 upper / 64 lower at scale
+    ef_construction: int = 100
+    sample_rate: float = 0.05     # upper-layer sample (paper: 5%)
+    metric: str = "l2"
+    batch_size: int = 256
+    seed: int = 0
+
+    def build_params(self) -> BuildParams:
+        return BuildParams(m_u=self.m_u, ef_construction=self.ef_construction,
+                           sample_rate=self.sample_rate, metric=self.metric,
+                           batch_size=self.batch_size, seed=self.seed)
+
+
+@dataclasses.dataclass
+class NavixIndex:
+    graph: HnswGraph
+    config: NavixConfig
+
+    # -- creation ---------------------------------------------------------
+    @classmethod
+    def create(cls, vectors, config: NavixConfig = NavixConfig(),
+               device: str | torch.device | None = None
+               ) -> tuple["NavixIndex", BuildStats]:
+        """Build an index over ``vectors`` (f32[n, d]) on ``device``."""
+        validate_metric(config.metric)
+        graph, stats = build(vectors, config.build_params(), device=device)
+        return cls(graph=graph, config=config), stats
+
+    @classmethod
+    def from_graph(cls, graph: HnswGraph, config: NavixConfig,
+                   device: str | torch.device | None = None) -> "NavixIndex":
+        """Wrap an existing graph, moved to ``device`` (CUDA by default)."""
+        return cls(graph=graph.to(resolve_device(device)), config=config)
+
+    @property
+    def device(self) -> torch.device:
+        return self.graph.device
+
+    # -- semimasks ----------------------------------------------------------
+    def pack_semimask(self, mask) -> torch.Tensor:
+        """Pack a semimask (or a per-lane stack of semimasks).
+
+        Accepts bool[n] / bool[B, n] (numpy, a tensor, or a list of bool[n]
+        masks), pre-packed uint32[W] / uint32[B, W] numpy words, or the
+        port's own int32 word tensors. Returns int32 words on the index's
+        device.
+        """
+        if isinstance(mask, (list, tuple)):
+            mask = np.stack([np.asarray(m) for m in mask])
+        want = bitset.n_words(self.graph.n)
+        if isinstance(mask, torch.Tensor):
+            if mask.dtype == torch.int32:
+                if mask.shape[-1] != want:
+                    raise ValueError(
+                        f"pre-packed semimask has {mask.shape[-1]} words but "
+                        f"this index ({self.graph.n} nodes) needs {want}")
+                return mask.to(self.device)
+            mask = mask.to(torch.bool)
+            if mask.shape[-1] != self.graph.n:
+                raise ValueError(f"semimask covers {mask.shape[-1]} nodes but "
+                                 f"this index has {self.graph.n}")
+            return bitset.pack(mask.to(self.device))
+        mask = np.asarray(mask)
+        if mask.dtype == np.uint32:
+            if mask.shape[-1] != want:
+                raise ValueError(
+                    f"pre-packed semimask has {mask.shape[-1]} uint32 words "
+                    f"but this index ({self.graph.n} nodes) needs {want}; "
+                    f"was it packed for a differently-sized index?")
+            return bitset.from_words(mask, self.device)
+        if mask.shape[-1] != self.graph.n:
+            raise ValueError(f"semimask covers {mask.shape[-1]} nodes but "
+                             f"this index has {self.graph.n}")
+        # host data packs on the host in one numpy pass
+        return bitset.from_words(bitset.pack_np(mask), self.device)
+
+    def full_semimask(self) -> torch.Tensor:
+        return bitset.full_mask(self.graph.n, self.device)
+
+    def sigma(self, sel_bits: torch.Tensor):
+        """Selectivity |S|/|V|: a float for a [W] mask, f32[B] per lane for
+        a per-lane [B, W] stack."""
+        if sel_bits.ndim == 2:
+            return bitset.count_batch(sel_bits).to(torch.float32) / self.graph.n
+        return float(bitset.count(sel_bits)) / self.graph.n
+
+    # -- search -------------------------------------------------------------
+    def _params(self, k: int, efs: int, heuristic) -> SearchParams:
+        h = (Heuristic.from_name(heuristic) if isinstance(heuristic, str)
+             else Heuristic(heuristic))
+        return SearchParams(k=k, efs=max(efs, k), heuristic=int(h),
+                            metric=self.config.metric)
+
+    def _prep_query(self, q) -> torch.Tensor:
+        q = torch.as_tensor(q, dtype=torch.float32).to(self.device)
+        if self.config.metric == "cos":
+            q = normalize(q)
+        return q.contiguous()
+
+    def search(self, q, k: int = 100, efs: int = 0, semimask=None,
+               heuristic="adaptive_local", sigma_g=None) -> SearchResult:
+        """Filtered kNN for one query vector (the single-query oracle)."""
+        efs = efs or 2 * k
+        sel = (self.full_semimask() if semimask is None
+               else self.pack_semimask(semimask))
+        if sigma_g is None:
+            sigma_g = self.sigma(sel)
+        return search(self.graph, self._prep_query(q), sel,
+                      self._params(k, efs, heuristic), sigma_g=sigma_g)
+
+    def search_many(self, Q, k: int = 100, efs: int = 0, semimask=None,
+                    heuristic="adaptive_local") -> SearchResult:
+        """Batched search through the batched-frontier engine.
+
+        ``semimask`` may be one shared mask (bool[n] / uint32[W]) or a
+        per-lane stack (bool[B, n], a list of B masks, or uint32[B, W]), in
+        which case lane b searches its own selected set.
+        """
+        efs = efs or 2 * k
+        sel = (self.full_semimask() if semimask is None
+               else self.pack_semimask(semimask))
+        return search_many(self.graph, self._prep_query(Q), sel,
+                           self._params(k, efs, heuristic),
+                           sigma_g=self.sigma(sel))
+
+    # -- oracles ------------------------------------------------------------
+    def brute_force(self, Q, k: int = 100, semimask=None):
+        """Exact filtered kNN over the index's vectors: (dists, ids)."""
+        Q = torch.atleast_2d(self._prep_query(Q))
+        mask = None
+        if semimask is not None:
+            mask = bitset.unpack(self.pack_semimask(semimask), self.graph.n)
+        return brute_force_topk(Q, self.graph.vectors, k, self.config.metric,
+                                mask=mask)
+
+    def recall(self, res_ids, true_ids) -> float:
+        """recall@k with -1-padding awareness (both arrays [k] or [b, k])."""
+        res = np.atleast_2d(_host(res_ids))
+        true = np.atleast_2d(_host(true_ids))
+        hits = denom = 0
+        for r, t in zip(res, true):
+            tset = set(int(x) for x in t if x >= 0)
+            denom += len(tset)
+            # a duplicated result id is one hit, not many
+            hits += len(tset & set(int(x) for x in r if x >= 0))
+        return hits / max(denom, 1)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

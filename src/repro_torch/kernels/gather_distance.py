@@ -1,0 +1,81 @@
+"""Wrapper of the CUDA gather + distance kernel (``csrc/gather_distance.cu``).
+
+Replaces the TPU kernel ``repro/kernels/gather_distance.py::
+gather_distance_batch_pallas``; the source note in the ``.cu`` file gives
+the kernel's bound and design. The plain PyTorch version of the same
+function is ``kernels/ref.py::gather_distance_batch``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: kernel launches made by :func:`gather_distance_batch` in this process
+LAUNCHES = 0
+
+_METRIC_CODE = {"l2": 0, "cos": 1, "dot": 2}
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _kernel():
+    lib = _build.load("gather_distance")
+    fn = lib.navix_gather_distance_batch_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.navix_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.navix_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.navix_cuda_error_string
+
+
+def gather_distance_batch(Q: torch.Tensor, vectors: torch.Tensor,
+                          ids: torch.Tensor, metric: str) -> torch.Tensor:
+    """f32[B, K] = dist(Q[b], vectors[ids[b, j]]) on the CUDA device.
+
+    Q f32[B, d], vectors f32[n, d], ids int32[B, K], all contiguous and on
+    one CUDA device; ids < 0 give +inf, ids >= n read row n-1. Launches on
+    the current stream and raises if the launch fails.
+    """
+    global LAUNCHES
+    for name, t in (("Q", Q), ("vectors", vectors), ("ids", ids)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} lies on {t.device}; the CUDA kernel "
+                             f"takes CUDA tensors only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not Q.device == vectors.device == ids.device:
+        raise ValueError(f"Q, vectors and ids lie on different devices "
+                         f"({Q.device}, {vectors.device}, {ids.device})")
+    if Q.dtype != torch.float32 or vectors.dtype != torch.float32:
+        raise TypeError(f"Q and vectors must be float32, got {Q.dtype} and "
+                        f"{vectors.dtype}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32, got {ids.dtype}")
+    if Q.ndim != 2 or vectors.ndim != 2 or ids.ndim != 2:
+        raise ValueError("expected Q[B, d], vectors[n, d], ids[B, K]")
+    (bsz, d), (n, dv), (bi, k) = Q.shape, vectors.shape, ids.shape
+    if dv != d or bi != bsz:
+        raise ValueError(f"shape mismatch: Q{tuple(Q.shape)}, "
+                         f"vectors{tuple(vectors.shape)}, ids{tuple(ids.shape)}")
+    if n == 0 or d == 0:
+        raise ValueError("vectors must hold at least one row of width > 0")
+    if max(bsz, k, n, d) > _INT32_MAX:
+        raise ValueError("a dimension exceeds the kernel's int32 range")
+    if metric not in _METRIC_CODE:
+        raise ValueError(f"unknown metric {metric!r}")
+    out = torch.empty((bsz, k), dtype=torch.float32, device=Q.device)
+    if bsz == 0 or k == 0:
+        return out
+    fn, err_str = _kernel()
+    with torch.cuda.device(Q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(Q.data_ptr(), vectors.data_ptr(), ids.data_ptr(),
+                out.data_ptr(), bsz, k, n, d, _METRIC_CODE[metric], stream)
+    if rc != 0:
+        raise RuntimeError(f"gather_distance_batch kernel launch failed: "
+                           f"{err_str(rc).decode()} (cudaError {rc})")
+    LAUNCHES += 1
+    return out

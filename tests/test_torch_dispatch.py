@@ -1,0 +1,97 @@
+"""Dispatch goes by the tensor's device and never hides the card.
+
+A CPU tensor runs the plain version and launches nothing; a CUDA request
+on a host without CUDA raises instead of falling back to the CPU; the
+kernel's loader raises a clear error when ``nvcc`` is absent.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.common.device import resolve_device
+from repro_torch.core.graph import FIELDS, graph_from_numpy
+from repro_torch.core.navix import NavixConfig, NavixIndex
+from repro_torch.kernels import _build, gather_distance, ops, ref
+
+RNG = np.random.default_rng(0)
+
+
+def _inputs(b=3, n=20, d=8, k=5):
+    Q = torch.from_numpy(RNG.normal(size=(b, d)).astype(np.float32))
+    X = torch.from_numpy(RNG.normal(size=(n, d)).astype(np.float32))
+    ids = torch.from_numpy(RNG.integers(-1, n, size=(b, k)).astype(np.int32))
+    return Q, X, ids
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """A host on which torch reports no CUDA device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
+def test_cpu_tensor_runs_plain_version_and_launches_nothing(metric):
+    Q, X, ids = _inputs()
+    before = gather_distance.LAUNCHES
+    got = ops.gather_distance_batch(Q, X, ids, metric)
+    assert gather_distance.LAUNCHES == before
+    assert torch.equal(got, ref.gather_distance_batch(Q, X, ids, metric))
+
+
+def test_mixed_devices_raise():
+    Q, X, ids = _inputs()
+    with pytest.raises(ValueError, match="different devices"):
+        ops.gather_distance_batch(Q.to("meta"), X, ids)
+
+
+def test_unsupported_device_raises():
+    Q, X, ids = _inputs()
+    with pytest.raises(ValueError, match="no gather_distance_batch path"):
+        ops.gather_distance_batch(Q.to("meta"), X.to("meta"), ids.to("meta"))
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    Q, X, ids = _inputs()
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        gather_distance.gather_distance_batch(Q, X, ids, "l2")
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_cuda_default_raises_without_cuda(no_cuda):
+    for dev in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device(dev)
+
+
+def test_entry_points_do_not_fall_back_to_cpu(no_cuda):
+    X = RNG.normal(size=(40, 8)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NavixIndex.create(X, NavixConfig(m_u=4, ef_construction=16))
+    arrays = {"lower": np.full((40, 8), -1), "lower_deg": np.zeros(40),
+              "upper": np.full((2, 4), -1), "upper_deg": np.zeros(2),
+              "upper_ids": np.arange(2), "entry_pos": np.int32(0),
+              "vectors": X}
+    assert set(arrays) == set(FIELDS)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graph_from_numpy(arrays)
+    g = graph_from_numpy(arrays, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NavixIndex.from_graph(g, NavixConfig())
+    idx = NavixIndex.from_graph(g, NavixConfig(), device="cpu")
+    assert idx.device == torch.device("cpu")
+
+
+def test_loader_raises_clearly_without_nvcc(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("gather_distance")
