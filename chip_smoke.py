@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version, builds a GIST1M-shaped index on the
-card (n = 1,000,000 x d = 960, l2, the paper's index settings), answers
-filtered batched queries at the paper's selectivities through
-``NavixIndex.search_many`` and checks the answers: the batched engine
-against the port's single-query search, bit for bit, and against the same
-search run on CPU copies through the plain version. Each phase prints one
-line; a failed phase raises, so the script exits non-zero and prints no
-``ok`` line. The last three lines are the card's name and power limit, a
-JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
+Builds the port's CUDA kernels from the sources in this checkout and holds
+each against its plain PyTorch version (the f32 and the int8 gather
+distance, batched and as one-lane launches), builds a GIST1M-shaped index
+on the card (n = 1,000,000 x d = 960, l2, the paper's index settings),
+answers filtered batched queries at the paper's selectivities through
+``NavixIndex.search_many``, makes the index int8-resident with
+``quantize_resident()`` and answers the same queries through
+``search_quantized_many`` (int8 beam loop on the card, exact re-rank on
+the host), and checks the answers: each batched engine against the port's
+single-query search, bit for bit, and against the same search run on CPU
+copies through the plain versions. Each phase prints one line; a failed
+phase raises, so the script exits non-zero and prints no ``ok`` line. The
+last three lines are the card's name and power limit, a JSON line of
+per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
 It needs one CUDA device and exits non-zero without one. It imports
 nothing of the JAX package.
@@ -20,6 +24,7 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -38,8 +43,11 @@ from repro_torch.configs.navix_paper import (PAPER_INDEX,  # noqa: E402
                                              SELECTIVITIES)
 from repro_torch.core.graph import check_symmetric_fraction  # noqa: E402
 from repro_torch.core.navix import NavixIndex  # noqa: E402
+from repro_torch.core.quantize import QuantizedStore, quantize  # noqa: E402
 from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
-from repro_torch.kernels import _build, gather_distance, ref  # noqa: E402
+from repro_torch.storage.columnar import ExactTier  # noqa: E402
+from repro_torch.kernels import (_build, gather_distance,  # noqa: E402
+                                 quantized_gather_distance, ref)
 
 # GIST1M (TEXMEX; the paper's Table 2): 1M vectors of width 960, l2
 N_GIST = 1_000_000
@@ -50,14 +58,28 @@ N_QUERIES = 1024
 K = 100
 EFS = 200
 BUILD_MORSEL = 2048          # the paper's morsel size
-PARITY_LANES = 64
+PARITY_LANES = 32           # per sigma and per arm (f32, int8)
 PARITY_SIGMAS = (1.0, 0.1, 0.01)
 # kernel vs plain version: a different f32 summation order
 RTOL, ATOL = 1e-5, 1e-4
 # the card's memory rate (H100 SXM data sheet) for the bound
 HBM_BYTES_PER_S = 3.35e12
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
-KERNEL_REPLACES = "src/repro/kernels/gather_distance.py:125"
+# device cycles of spin queued per timed call: covers the host's time to
+# launch one call (tens of microseconds) at the card's clock
+SPIN_CYCLES_PER_CALL = 400_000
+# a 4-byte scale at a random address costs one 32-byte sector
+SECTOR_BYTES = 32
+F32_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
+INT8_SOURCE = "src/repro_torch/kernels/csrc/quantized_gather_distance.cu"
+TPU_KERNELS = "src/repro/kernels/gather_distance.py"
+#: name -> (CUDA source, TPU kernel it replaces); the single-query forms are
+#: one-lane launches of the batched kernels
+KERNELS = {
+    "gather_distance_batch": (F32_SOURCE, f"{TPU_KERNELS}:125"),
+    "quantized_gather_distance_batch": (INT8_SOURCE, f"{TPU_KERNELS}:173"),
+    "gather_distance": (F32_SOURCE, f"{TPU_KERNELS}:39"),
+    "quantized_gather_distance": (INT8_SOURCE, f"{TPU_KERNELS}:91"),
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -71,10 +93,14 @@ def sync() -> None:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of ``fn`` over ``reps`` calls (CUDA events,
-    after one warm-up call)."""
+    after one warm-up call). A spin kernel holds the stream while the host
+    queues the calls, so they run back to back and a call faster than its
+    launch from Python is timed on the device, not at the host's launch
+    rate."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -83,15 +109,50 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def gather_bound_ms(Q: torch.Tensor, ids: torch.Tensor) -> float:
+def launch_counts() -> dict[str, int]:
+    """Each kernel wrapper's launch count, by kernel name."""
+    return {"gather_distance_batch": gather_distance.LAUNCHES,
+            "gather_distance": gather_distance.ONE_LANE_LAUNCHES,
+            "quantized_gather_distance_batch":
+                quantized_gather_distance.LAUNCHES,
+            "quantized_gather_distance":
+                quantized_gather_distance.ONE_LANE_LAUNCHES}
+
+
+def reset_counts() -> None:
+    gather_distance.LAUNCHES = gather_distance.ONE_LANE_LAUNCHES = 0
+    quantized_gather_distance.LAUNCHES = 0
+    quantized_gather_distance.ONE_LANE_LAUNCHES = 0
+
+
+def gather_bound_ms(Q: torch.Tensor, ids: torch.Tensor,
+                    row_bytes: int) -> float:
     """Least time for one gather-distance call on these inputs: each valid
-    candidate row read once (4d bytes), each id, each query row and each
-    output moved once, at the card's memory rate."""
+    candidate row read once (``row_bytes``: 4d for f32 rows; d code bytes
+    and the 32-byte sector of the scale for int8 rows), each id, each query
+    row and each output moved once, at the card's memory rate."""
     bsz, k = ids.shape
     d = Q.shape[1]
     rows = int(torch.unique(ids[ids >= 0]).numel())
-    nbytes = rows * 4 * d + 4 * bsz * k + 4 * bsz * d + 4 * bsz * k
+    nbytes = rows * row_bytes + 4 * bsz * k + 4 * bsz * d + 4 * bsz * k
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def kernel_entry(name: str, max_abs: float, timing: tuple) -> dict:
+    """One entry of the ``kernels`` JSON line (launches are filled in from
+    the main path's run)."""
+    source, replaces = KERNELS[name]
+    ms, plain_ms, bound_ms = timing
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def print_ptxas(name: str) -> None:
+    for ln in _build.build_info.get(name, {}).get("log", "").splitlines():
+        if "registers" in ln or "spill" in ln:
+            print(f"[kernel] {name} ptxas: {ln.strip()}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -111,14 +172,17 @@ def phase_device() -> str:
     return line
 
 
-def _padded_ids(gen: torch.Generator, bsz: int, k: int, n: int) -> torch.Tensor:
-    """Random ids in [0, n) with -1 padding and out-of-range ids (>= n)."""
+def _padded_ids(gen: torch.Generator, bsz: int, k: int, n: int,
+                retire: bool = True) -> torch.Tensor:
+    """Random ids in [0, n) with 20% -1 padding and out-of-range ids (>= n);
+    lane 0 fully retired unless ``retire`` is False."""
     ids = torch.randint(0, n, (bsz, k), generator=gen, device="cuda",
                         dtype=torch.int32)
     r = torch.rand((bsz, k), generator=gen, device="cuda")
     ids = torch.where(r < 0.2, -1, ids)
     ids = torch.where((r >= 0.2) & (r < 0.25), n + 7, ids)
-    ids[0] = -1                                     # a fully retired lane
+    if retire:
+        ids[0] = -1                                 # a fully retired lane
     return ids
 
 
@@ -139,17 +203,11 @@ def _kernel_shapes() -> list[tuple[int, int]]:
     ]
 
 
-def _check_kernel(vecs: torch.Tensor, qs: torch.Tensor, ids: torch.Tensor,
-                  metric: str) -> tuple[float, float]:
-    """Kernel vs plain version on the same inputs; (max abs, max rel) err.
-    The plain version runs in slices of lanes to bound its [b, K, d]
-    gather."""
-    got = gather_distance.gather_distance_batch(qs, vecs, ids, metric)
-    want = torch.cat([ref.gather_distance_batch(qs[i:i + 4096], vecs,
-                                                ids[i:i + 4096], metric)
-                      for i in range(0, qs.shape[0], 4096)])
+def _compare(got: torch.Tensor, want: torch.Tensor,
+             where: str) -> tuple[float, float]:
+    """Kernel output vs plain version: identical +inf placement, rtol /
+    atol elsewhere; returns (max abs, max rel) error."""
     sync()
-    where = f"{metric}, B={ids.shape[0]}, K={ids.shape[1]}, d={qs.shape[1]}"
     check(torch.equal(torch.isinf(got), torch.isinf(want)),
           f"kernel places +inf differently ({where})")
     fin = torch.isfinite(want)
@@ -163,14 +221,38 @@ def _check_kernel(vecs: torch.Tensor, qs: torch.Tensor, ids: torch.Tensor,
             float((err / want[fin].abs().clamp(min=1e-30)).max()))
 
 
-def phase_kernel() -> dict:
+def _check_kernel(vecs: torch.Tensor, qs: torch.Tensor, ids: torch.Tensor,
+                  metric: str) -> tuple[float, float]:
+    """f32 kernel vs plain version on the same inputs. The plain version
+    runs in slices of lanes to bound its [b, K, d] gather."""
+    got = gather_distance.gather_distance_batch(qs, vecs, ids, metric)
+    want = torch.cat([ref.gather_distance_batch(qs[i:i + 4096], vecs,
+                                                ids[i:i + 4096], metric)
+                      for i in range(0, qs.shape[0], 4096)])
+    return _compare(got, want, f"f32 {metric}, B={ids.shape[0]}, "
+                               f"K={ids.shape[1]}, d={qs.shape[1]}")
+
+
+def _check_one_lane(vecs: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
+                    metric: str) -> float:
+    """The f32 one-lane entry: equal to the batched kernel's lane bit for
+    bit, and to the plain version within tolerance; max abs err."""
+    one = gather_distance.gather_distance(q, vecs, ids, metric)
+    lane = gather_distance.gather_distance_batch(q[None], vecs, ids[None],
+                                                 metric)[0]
+    sync()
+    check(torch.equal(one, lane), f"f32 one-lane launch != batched lane "
+                                  f"({metric}, K={ids.shape[0]})")
+    return _compare(one, ref.gather_distance(q, vecs, ids, metric),
+                    f"f32 one lane {metric}, K={ids.shape[0]}")[0]
+
+
+def phase_kernel() -> list[dict]:
     t0 = time.perf_counter()
     _build.load("gather_distance")
     info = _build.build_info.get("gather_distance", {})
     build_s = time.perf_counter() - t0
-    for ln in info.get("log", "").splitlines():
-        if "registers" in ln or "spill" in ln:
-            print(f"[kernel] ptxas: {ln.strip()}", flush=True)
+    print_ptxas("gather_distance")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     vectors = torch.randn((N, DIM), generator=gen, device="cuda")
@@ -191,10 +273,19 @@ def phase_kernel() -> dict:
         for metric in ("l2", "cos", "dot"):
             a, r = _check_kernel(v_odd, q_odd, ids, metric)
             max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-    print(f"[kernel] kernel == plain version at every (B, K) of the main "
-          f"path, d={DIM}, l2/cos/dot: "
+    # one-lane launches: the single-query oracle's K = 1, M_U, M_L
+    one_abs = 0.0
+    for k in (1, PAPER_INDEX.m_u, 2 * PAPER_INDEX.m_u):
+        for vecs, d in ((vectors, DIM), (v_odd, 33)):
+            q = torch.randn((d,), generator=gen, device="cuda")
+            ids = _padded_ids(gen, 1, k, vecs.shape[0], retire=False)[0]
+            for metric in ("l2", "cos", "dot"):
+                one_abs = max(one_abs, _check_one_lane(vecs, q, ids, metric))
+    print(f"[kernel] f32: kernel == plain version at every (B, K) of the "
+          f"main path, d={DIM}, l2/cos/dot: "
           + ", ".join(f"({b}, {k})" for b, k in shapes)
-          + "; and d=33 at K=64, 72", flush=True)
+          + "; and d=33 at K=64, 72; one-lane launches at K=1, 32, 64 equal "
+          "the batched lane bit for bit", flush=True)
 
     Q = torch.randn((N_QUERIES, DIM), generator=gen, device="cuda")
     timings = {}
@@ -205,19 +296,112 @@ def phase_kernel() -> dict:
                 Q, vectors, ids, "l2"), reps=50),
             cuda_ms(lambda: ref.gather_distance_batch(
                 Q, vectors, ids, "l2"), reps=10),
-            gather_bound_ms(Q, ids))
-    ms, plain_ms, bound_ms = timings[64]
+            gather_bound_ms(Q, ids, 4 * DIM))
+    ids = _padded_ids(gen, 1, 64, N, retire=False)
+    q = Q[0].contiguous()
+    one = (cuda_ms(lambda: gather_distance.gather_distance(
+               q, vectors, ids[0], "l2"), reps=50),
+           cuda_ms(lambda: ref.gather_distance(q, vectors, ids[0], "l2"),
+                   reps=10),
+           gather_bound_ms(q[None], ids, 4 * DIM))
     shown = "; ".join(
         f"K={k}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound "
         f"{t[2]:.4f} ms (bytes)" for k, t in timings.items())
     print(f"[kernel] gather_distance_batch built in {build_s:.3f}s "
           f"(nvcc {info.get('seconds', 0.0):.3f}s); max abs err {max_abs:.3e}"
           f", max rel err {max_rel:.3e} (rtol {RTOL}, atol {ATOL}); B="
-          f"{N_QUERIES} d={DIM} l2, 20% ids -1: {shown}", flush=True)
-    return {"name": "gather_distance_batch", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+          f"{N_QUERIES} d={DIM} l2, 20% ids -1: {shown}; one lane (B=1, "
+          f"K=64): kernel {one[0]:.4f} ms, plain {one[1]:.4f} ms, bound "
+          f"{one[2]:.6f} ms, max abs err {one_abs:.3e}", flush=True)
+    return [kernel_entry("gather_distance_batch", max_abs, timings[64]),
+            kernel_entry("gather_distance", one_abs, one)]
+
+
+def _check_int8(store: QuantizedStore, qs: torch.Tensor, ids: torch.Tensor,
+                metric: str) -> float:
+    """int8 kernel vs plain version; for one lane also the one-lane entry,
+    which must equal the batched lane bit for bit. Max abs err."""
+    codes, scale = store.codes, store.scale
+    got = quantized_gather_distance.quantized_gather_distance_batch(
+        qs, codes, scale, ids, metric)
+    where = (f"int8 {metric}, B={ids.shape[0]}, K={ids.shape[1]}, "
+             f"d={qs.shape[1]}")
+    err = _compare(got, ref.quantized_gather_distance_batch(
+        qs, codes, scale, ids, metric), where)[0]
+    if qs.shape[0] == 1:
+        one = quantized_gather_distance.quantized_gather_distance(
+            qs[0], codes, scale, ids[0], metric)
+        sync()
+        check(torch.equal(one, got[0]),
+              f"one-lane launch != batched lane ({where})")
+    return err
+
+
+def phase_kernel_int8() -> list[dict]:
+    t0 = time.perf_counter()
+    _build.load("quantized_gather_distance")
+    info = _build.build_info.get("quantized_gather_distance", {})
+    build_s = time.perf_counter() - t0
+    print_ptxas("quantized_gather_distance")
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    stores = {}
+    for n, d in ((N, DIM), (4096, 33)):
+        X = torch.randn((n, d), generator=gen, device="cuda")
+        X[3] = 0.0                                   # scale 1, codes 0
+        stores[d] = quantize(X)
+        del X
+        check(float(stores[d].scale[3]) == 1.0, "all-zero row: scale != 1")
+    shapes = [(bsz, k) for bsz in (N_QUERIES, 1)
+              for k in (1, PAPER_INDEX.m_u, 2 * PAPER_INDEX.m_u)]
+    max_abs = {N_QUERIES: 0.0, 1: 0.0}
+    for d, store in stores.items():
+        for bsz, k in shapes:
+            qs = torch.randn((bsz, d), generator=gen, device="cuda")
+            ids = _padded_ids(gen, bsz, k, store.n, retire=bsz > 1)
+            ids[-1, 0] = 3                           # the all-zero row
+            for metric in ("l2", "cos", "dot"):
+                max_abs[bsz] = max(max_abs[bsz],
+                                   _check_int8(store, qs, ids, metric))
+    print(f"[kernel] int8: kernel == plain version at (B, K) = "
+          + ", ".join(f"({b}, {k})" for b, k in shapes)
+          + f", d={DIM} and d=33, l2/cos/dot, codes from quantize() with an "
+          "all-zero row, 20% ids -1, ids >= n, a fully retired lane; "
+          "one-lane launches equal the batched lane bit for bit", flush=True)
+
+    store = stores[DIM]
+    Q = torch.randn((N_QUERIES, DIM), generator=gen, device="cuda")
+    c, sc = store.codes, store.scale
+    timings = {}
+    for k in (64, 32):
+        ids = _padded_ids(gen, N_QUERIES, k, N)
+        timings[k] = (
+            cuda_ms(lambda: quantized_gather_distance
+                    .quantized_gather_distance_batch(Q, c, sc, ids, "l2"),
+                    reps=50),
+            cuda_ms(lambda: ref.quantized_gather_distance_batch(
+                Q, c, sc, ids, "l2"), reps=10),
+            gather_bound_ms(Q, ids, DIM + SECTOR_BYTES))
+    ids = _padded_ids(gen, 1, 64, N, retire=False)
+    q = Q[0].contiguous()
+    one = (cuda_ms(lambda: quantized_gather_distance.quantized_gather_distance(
+               q, c, sc, ids[0], "l2"), reps=50),
+           cuda_ms(lambda: ref.quantized_gather_distance(q, c, sc, ids[0],
+                                                         "l2"), reps=10),
+           gather_bound_ms(q[None], ids, DIM + SECTOR_BYTES))
+    shown = "; ".join(
+        f"K={k}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound "
+        f"{t[2]:.4f} ms (bytes, {100 * t[2] / t[0]:.1f}% of it reached)"
+        for k, t in timings.items())
+    print(f"[kernel] quantized_gather_distance_batch built in {build_s:.3f}s "
+          f"(nvcc {info.get('seconds', 0.0):.3f}s); max abs err "
+          f"{max_abs[N_QUERIES]:.3e} (rtol {RTOL}, atol {ATOL}); B="
+          f"{N_QUERIES} d={DIM} l2, 20% ids -1: {shown}; one lane (B=1, "
+          f"K=64): kernel {one[0]:.4f} ms, plain {one[1]:.4f} ms, bound "
+          f"{one[2]:.6f} ms, max abs err {max_abs[1]:.3e}", flush=True)
+    return [kernel_entry("quantized_gather_distance_batch",
+                         max_abs[N_QUERIES], timings[64]),
+            kernel_entry("quantized_gather_distance", max_abs[1], one)]
 
 
 def make_data(n: int):
@@ -255,7 +439,8 @@ def make_masks(n: int, sigmas) -> dict[float, np.ndarray]:
     return {s: rng.random(n) < s for s in sigmas}
 
 
-def phase_search(idx, Q: np.ndarray, masks) -> dict[float, object]:
+def phase_search(idx, Q: np.ndarray, masks) -> dict[float, tuple]:
+    """The f32 sweep. Returns {sigma: (result, brute-force ids, recall)}."""
     results = {}
     for sigma, mask in masks.items():
         idx.search_many(Q, k=K, efs=EFS, semimask=mask)       # warm-up
@@ -288,8 +473,97 @@ def phase_search(idx, Q: np.ndarray, masks) -> dict[float, object]:
               f"{float(st.iters.float().mean()):.1f}, kernel launches "
               f"{launches}, pass working set {work / 2**30:.3f} GiB",
               flush=True)
-        results[sigma] = res
+        results[sigma] = (res, true_ids, rec)
     return results
+
+
+def phase_quantize(idx):
+    """Make the index int8-resident: codes + scales on the card, the f32
+    rows copied once to the host's exact tier."""
+    sync()
+    t0 = time.perf_counter()
+    qidx = idx.quantize_resident()
+    sync()
+    dt = time.perf_counter() - t0
+    store = qidx.graph.vectors
+    check(isinstance(store, QuantizedStore)
+          and store.codes.device.type == "cuda",
+          "quantize_resident() left no int8 store on the card")
+    f32_b, q_b = idx.graph.vector_nbytes(), qidx.graph.vector_nbytes()
+    want = (DIM + 4) / (4 * DIM)
+    check(q_b * 4 * DIM == f32_b * (DIM + 4),
+          f"int8 bytes {q_b} are not (d + 4)/(4d) of f32 bytes {f32_b}")
+    print(f"[quantize] quantize_resident() {dt:.3f}s: vector_nbytes f32 "
+          f"{f32_b:,} B, int8 {q_b:,} B, ratio {q_b / f32_b:.4f} "
+          f"((d + 4)/(4d) = {want:.4f}); exact tier {qidx.exact.nbytes():,} "
+          f"B on the host ({'memmap' if qidx.exact.is_mmapped else 'memory'})",
+          flush=True)
+    return qidx
+
+
+@dataclasses.dataclass
+class _TimedTier(ExactTier):
+    """The index's exact tier, noting when the re-rank of a pass starts
+    (the beam loop has ended and its ids are on the host) and how long it
+    takes, so one pass splits into its two stages."""
+
+    started: float = 0.0
+    seconds: float = 0.0
+
+    def rerank_many(self, Q, ids, k):
+        self.started = time.perf_counter()
+        out = super().rerank_many(Q, ids, k)
+        self.seconds = time.perf_counter() - self.started
+        return out
+
+
+def phase_search_int8(qidx, Q: np.ndarray, masks, f32) -> None:
+    """The int8 sweep through ``search_quantized_many``: a warm-up pass,
+    then a timed pass whose beam loop (on the card, up to the ids' copy
+    to the host) and host re-rank are timed apart."""
+    f32_store = N * DIM * 4
+    tier = _TimedTier(vectors=qidx.exact.vectors, metric=qidx.exact.metric)
+    timed_idx = dataclasses.replace(qidx, exact=tier)
+    for sigma, mask in masks.items():
+        timed_idx.search_quantized_many(Q, k=K, efs=EFS, semimask=mask)
+        sync()
+        before = launch_counts()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = timed_idx.search_quantized_many(Q, k=K, efs=EFS, semimask=mask)
+        sync()
+        dt = time.perf_counter() - t0
+        beam_s, rerank_s = tier.started - t0, tier.seconds
+        work = torch.cuda.max_memory_allocated() - base
+        after = launch_counts()
+        launched = {n: after[n] - before[n] for n in after}
+        check(launched["quantized_gather_distance_batch"] > 0,
+              f"sigma={sigma}: the int8 pass launched no int8 kernel")
+        check(launched["gather_distance_batch"] == 0
+              and launched["gather_distance"] == 0,
+              f"sigma={sigma}: the int8 pass launched an f32 gather kernel")
+        check(work < f32_store,
+              f"sigma={sigma}: the int8 pass allocated {work} B, as much as "
+              f"an f32 store ({f32_store} B)")
+        check(tuple(res.ids.shape) == (len(Q), K)
+              and res.ids.device.type == "cuda"
+              and bool(torch.isfinite(res.dists[res.ids >= 0]).all()),
+              f"sigma={sigma}: malformed result")
+        _, true_ids, rec_f32 = f32[sigma]
+        rec = qidx.recall(res.ids, true_ids)
+        st = res.stats
+        print(f"[int8] sigma={sigma}: QPS {len(Q) / dt:.1f} ({dt:.3f}s for "
+              f"B={len(Q)}): beam loop {beam_s:.3f}s (QPS "
+              f"{len(Q) / beam_s:.1f}), host re-rank {rerank_s:.3f}s "
+              f"({100 * rerank_s / dt:.1f}% of the pass); recall@{K} "
+              f"{rec:.4f} (f32 arm {rec_f32:.4f}, diff {rec - rec_f32:+.4f}); "
+              f"mean t_dc {float(st.t_dc.float().mean()):.1f}, iters max "
+              f"{int(st.iters.max())} mean {float(st.iters.float().mean()):.1f}"
+              f"; int8 kernel launches "
+              f"{launched['quantized_gather_distance_batch']}, f32 0; pass "
+              f"working set {work / 2**30:.3f} GiB (an f32 store is "
+              f"{f32_store / 2**30:.3f} GiB)", flush=True)
 
 
 def phase_profile(idx, Q: np.ndarray, mask) -> None:
@@ -325,21 +599,22 @@ def _same_result(one, many, i: int) -> bool:
                     for f in one.stats._fields))
 
 
-def phase_parity(idx, Q: np.ndarray, masks) -> None:
-    Qp = Q[:PARITY_LANES]
-    cpu_idx = NavixIndex.from_graph(idx.graph, idx.config, device="cpu")
+def _parity_arm(name: str, search_one, search_many, cpu_many, Q, masks
+                ) -> tuple[int, int]:
+    """Batched == single-query on the card, bit for bit, and the card
+    against the plain path on CPU copies; (identical lanes, lanes)."""
     identical = total = 0
     for sigma in PARITY_SIGMAS:
         mask = masks[sigma]
-        many = idx.search_many(Qp, k=K, efs=EFS, semimask=mask)
-        for i in range(PARITY_LANES):
-            one = idx.search(Qp[i], k=K, efs=EFS, semimask=mask)
+        many = search_many(Q, k=K, efs=EFS, semimask=mask)
+        for i in range(len(Q)):
+            one = search_one(Q[i], k=K, efs=EFS, semimask=mask)
             check(_same_result(one, many, i),
-                  f"sigma={sigma} lane {i}: batched engine != single-query "
-                  f"search on the card")
-        plain = cpu_idx.search_many(Qp, k=K, efs=EFS, semimask=mask)
+                  f"{name} sigma={sigma} lane {i}: batched engine != "
+                  f"single-query search on the card")
+        plain = cpu_many(Q, k=K, efs=EFS, semimask=mask)
         gpu_ids, gpu_d = many.ids.cpu(), many.dists.cpu()
-        for i in range(PARITY_LANES):
+        for i in range(len(Q)):
             total += 1
             if torch.equal(plain.ids[i], gpu_ids[i]):
                 identical += 1
@@ -347,16 +622,34 @@ def phase_parity(idx, Q: np.ndarray, masks) -> None:
             # the lanes may differ only by the order of near-tied distances
             check(torch.allclose(plain.dists[i], gpu_d[i], rtol=1e-5,
                                  atol=0.0),
-                  f"sigma={sigma} lane {i}: kernel path and plain path "
-                  f"differ beyond a distance tie")
+                  f"{name} sigma={sigma} lane {i}: kernel path and plain "
+                  f"path differ beyond a distance tie")
     check(identical >= 0.99 * total,
-          f"only {identical}/{total} lanes identical to the plain path")
-    print(f"[parity] batched == single-query on the card, bit for bit: "
-          f"{len(PARITY_SIGMAS) * PARITY_LANES}/"
-          f"{len(PARITY_SIGMAS) * PARITY_LANES} lanes (sigma "
-          f"{PARITY_SIGMAS}); kernel path vs plain path on CPU copies: "
-          f"{identical}/{total} lanes with identical ids, the rest differ "
-          f"only at ties within 1e-5 relative", flush=True)
+          f"{name}: only {identical}/{total} lanes identical to the plain "
+          f"path")
+    return identical, total
+
+
+def phase_parity(idx, qidx, Q: np.ndarray, masks) -> None:
+    Qp = Q[:PARITY_LANES]
+    cpu = torch.device("cpu")
+    cpu_idx = NavixIndex.from_graph(idx.graph, idx.config, device="cpu")
+    f32 = _parity_arm("f32", idx.search, idx.search_many,
+                      cpu_idx.search_many, Qp, masks)
+    del cpu_idx
+    # the CPU copy keeps the host exact tier; only the graph moves
+    cpu_q = dataclasses.replace(qidx, graph=qidx.graph.to(cpu),
+                                quantized=None)
+    int8 = _parity_arm("int8", qidx.search_quantized,
+                       qidx.search_quantized_many,
+                       cpu_q.search_quantized_many, Qp, masks)
+    lanes = len(PARITY_SIGMAS) * PARITY_LANES
+    print(f"[parity] batched == single-query on the card, bit for bit: f32 "
+          f"{lanes}/{lanes}, int8 {lanes}/{lanes} lanes (sigma "
+          f"{PARITY_SIGMAS}); kernel path vs plain path on CPU copies: f32 "
+          f"{f32[0]}/{f32[1]}, int8 {int8[0]}/{int8[1]} lanes with identical"
+          f" ids, the rest differ only at ties within 1e-5 relative",
+          flush=True)
 
 
 def main() -> int:
@@ -376,7 +669,10 @@ def main() -> int:
         return out
 
     smi = phase_device()
-    kernel = timed("kernel", phase_kernel)
+    kernels = timed("kernel", phase_kernel)
+    torch.cuda.empty_cache()
+    kernels += timed("kernel_int8", phase_kernel_int8)
+    kernels = {k["name"]: k for k in kernels}
     torch.cuda.empty_cache()
 
     X, Q = timed("data", make_data, N)
@@ -385,25 +681,52 @@ def main() -> int:
           flush=True)
     masks = make_masks(len(X), SELECTIVITIES)
     masks[1.0] = None
-    gather_distance.LAUNCHES = 0                       # the main path: build
+    sweep = {s: masks[s] for s in SELECTIVITIES}
+
+    reset_counts()                                     # f32 path: build
     idx = timed("build", phase_build, X)               # + search
     del X
     build_launches = gather_distance.LAUNCHES
-    timed("search", phase_search, idx, Q,
-          {s: masks[s] for s in SELECTIVITIES})
-    kernel["launches"] = gather_distance.LAUNCHES
-    check(kernel["launches"] > build_launches,
+    f32 = timed("search", phase_search, idx, Q, sweep)
+    counts = launch_counts()
+    check(counts["gather_distance_batch"] > build_launches,
           "the search phase launched no gather_distance kernel")
-    print(f"[launches] gather_distance_batch: {build_launches} in the build, "
-          f"{kernel['launches'] - build_launches} in the search phase",
-          flush=True)
+    check(counts["quantized_gather_distance_batch"] == 0,
+          "the f32 path launched the int8 kernel")
+    kernels["gather_distance_batch"]["launches"] = \
+        counts["gather_distance_batch"]
     timed("profile", phase_profile, idx, Q, masks[0.1])
-    timed("parity", phase_parity, idx, Q, masks)
+
+    reset_counts()                                     # int8 path: quantize
+    qidx = timed("quantize", phase_quantize, idx)      # + int8 sweep
+    timed("search_int8", phase_search_int8, qidx, Q, sweep, f32)
+    counts = launch_counts()
+    check(counts["gather_distance_batch"] == counts["gather_distance"] == 0,
+          "the int8 path launched an f32 gather kernel")
+    kernels["quantized_gather_distance_batch"]["launches"] = \
+        counts["quantized_gather_distance_batch"]
+
+    reset_counts()                                     # single-query oracle
+    timed("parity", phase_parity, idx, qidx, Q, masks)
+    counts = launch_counts()
+    for name in ("gather_distance", "quantized_gather_distance"):
+        kernels[name]["launches"] = counts[name]
+    print(f"[launches] gather_distance_batch: {build_launches} in the build, "
+          f"{kernels['gather_distance_batch']['launches'] - build_launches} "
+          f"in the f32 sweep; quantized_gather_distance_batch: "
+          f"{kernels['quantized_gather_distance_batch']['launches']} in the "
+          f"int8 sweep; one-lane gather_distance "
+          f"{counts['gather_distance']} and quantized_gather_distance "
+          f"{counts['quantized_gather_distance']} in the single-query "
+          f"searches of the parity phase", flush=True)
+    for name, entry in kernels.items():
+        check(entry.get("launches", 0) > 0,
+              f"{name}: launched no time on its path")
     print(f"[done] {time.perf_counter() - t_start:.1f}s; phases (s): "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()),
           flush=True)
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

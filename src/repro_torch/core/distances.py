@@ -8,14 +8,18 @@ All distances are smaller-is-closer:
 ``point_dist`` is an elementwise product plus a last-axis sum, the one
 reduction form of the port's plain path (the reference keeps one form so
 its single-query and batched engines agree bitwise). The search engines
-reach distances through ``repro_torch.kernels.ops.gather_distance_batch``,
-which runs the CUDA kernel for CUDA tensors and the same elementwise form
-(``kernels/ref.py``) for CPU tensors.
+reach distances through the gather-distance entries of
+``repro_torch.kernels.ops`` (f32 or int8), which run the CUDA kernels for
+CUDA tensors and the same elementwise forms (``kernels/ref.py``) for CPU
+tensors; the functions here serve the build's pruning, the exact re-rank
+and the oracles.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.quantize import QuantizedStore
 
 VALID_METRICS = ("l2", "cos", "dot")
 
@@ -41,20 +45,31 @@ def point_dist(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
     raise ValueError(metric)
 
 
-def gather_rows(vectors: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``vectors[ids]`` with ids clamped into ``[0, n-1]`` (the reference's
-    gather clamps out-of-range ids; torch indexing would raise)."""
-    return vectors[ids.clamp(0, vectors.shape[0] - 1).long()]
+def gather_rows(vectors: torch.Tensor | QuantizedStore,
+                ids: torch.Tensor) -> torch.Tensor:
+    """f32 rows ``vectors[ids]`` with ids clamped into ``[0, n-1]`` (the
+    reference's gather clamps out-of-range ids; torch indexing would raise).
+
+    For a :class:`QuantizedStore` each gathered row is dequantized,
+    ``codes[ids] * scale[ids]``: elementwise what a gather from
+    ``dequantize(store)`` gives, with no ``[n, d]`` f32 buffer made.
+    """
+    safe = ids.clamp(0, vectors.shape[0] - 1).long()
+    if isinstance(vectors, QuantizedStore):
+        return (vectors.codes[safe].to(torch.float32)
+                * vectors.scale[safe][..., None])
+    return vectors[safe]
 
 
-def gathered_dist(q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
-                  metric: str) -> torch.Tensor:
+def gathered_dist(q: torch.Tensor, vectors: torch.Tensor | QuantizedStore,
+                  ids: torch.Tensor, metric: str) -> torch.Tensor:
     """dist(q, vectors[ids]) with ids < 0 padding -> +inf."""
     d = point_dist(q, gather_rows(vectors, ids), metric)
     return torch.where(ids >= 0, d, torch.inf)
 
 
-def gathered_dist_batch(Q: torch.Tensor, vectors: torch.Tensor,
+def gathered_dist_batch(Q: torch.Tensor,
+                        vectors: torch.Tensor | QuantizedStore,
                         ids: torch.Tensor, metric: str) -> torch.Tensor:
     """Rowwise gather+distance: dist(Q[b], vectors[ids[b]]) -> f32[B, K]."""
     d = point_dist(Q[:, None, :], gather_rows(vectors, ids), metric)

@@ -2,16 +2,21 @@
 
     idx, build_stats = NavixIndex.create(vectors, NavixConfig())   # on CUDA
     res = idx.search_many(Q, k=100, semimask=mask)   # adaptive-local
+    qidx = idx.quantize_resident()                   # int8 on the device
+    res = qidx.search_quantized_many(Q, k=100, semimask=mask)
 
 The index lives on one device, chosen at ``create`` / ``from_graph``: CUDA
 by default, the CPU only when the caller passes ``device="cpu"``. Searches
-run where the index lives; queries and semimasks are moved there.
+run where the index lives; queries and semimasks are moved there. An
+int8-resident index (paper Section 5.8) keeps codes + scales on the device
+and its f32 rows in a host :class:`ExactTier`, which re-ranks the final
+beam exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,8 +28,10 @@ from repro_torch.core.distances import (brute_force_topk, normalize,
                                         validate_metric)
 from repro_torch.core.graph import HnswGraph
 from repro_torch.core.heuristics import Heuristic
+from repro_torch.core.quantize import QuantizedStore, dequantize, quantize
 from repro_torch.core.search import SearchParams, SearchResult, search
 from repro_torch.core.search_batch import search_many
+from repro_torch.storage.columnar import ExactTier
 
 
 class NavixConfig(NamedTuple):
@@ -45,6 +52,14 @@ class NavixConfig(NamedTuple):
 class NavixIndex:
     graph: HnswGraph
     config: NavixConfig
+    quantized: Optional[QuantizedStore] = None
+    # exact f32 tier (host / memmap) paired with a quantized-resident graph;
+    # finalizes quantized searches by re-ranking the final beam exactly
+    exact: Optional[ExactTier] = None
+    # lazily built quantized sibling of an f32 index (search_quantized on
+    # an f32 index); never part of the persisted state
+    _qview: Optional["NavixIndex"] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     # -- creation ---------------------------------------------------------
     @classmethod
@@ -65,6 +80,42 @@ class NavixIndex:
     @property
     def device(self) -> torch.device:
         return self.graph.device
+
+    # -- residency ----------------------------------------------------------
+    @property
+    def is_quantized(self) -> bool:
+        """True when the device-resident vectors are int8 codes + scales."""
+        return isinstance(self.graph.vectors, QuantizedStore)
+
+    def quantize_resident(self, mmap_path=None) -> "NavixIndex":
+        """Return a sibling index whose device residency is int8.
+
+        The graph's vector payload becomes the ``QuantizedStore`` (codes +
+        per-vector scales, quantized on the index's device; the engines'
+        gather+distance dequantizes per gathered row, so no [n, d] f32
+        buffer is made on the device) and the f32 rows are copied once to
+        a host-side :class:`ExactTier` (``mmap_path`` spills them to disk).
+        """
+        if self.is_quantized:
+            return self
+        store = self.quantized
+        if store is None:
+            store = quantize(self.graph.vectors)
+        exact = ExactTier.build(self.graph.vectors.cpu().numpy(),
+                                self.config.metric, mmap_path=mmap_path)
+        return dataclasses.replace(
+            self, graph=self.graph._replace(vectors=store), quantized=store,
+            exact=exact, _qview=None)
+
+    def _quantized_view(self) -> "NavixIndex":
+        """The index search_quantized* runs on: self if already
+        int8-resident, else a cached quantized sibling (built once)."""
+        if self.is_quantized:
+            return self
+        if self._qview is None:
+            self._qview = self.quantize_resident()
+            self.quantized = self._qview.quantized
+        return self._qview
 
     # -- semimasks ----------------------------------------------------------
     def pack_semimask(self, mask) -> torch.Tensor:
@@ -153,15 +204,77 @@ class NavixIndex:
                            self._params(k, efs, heuristic),
                            sigma_g=self.sigma(sel))
 
+    def search_quantized(self, q, k: int = 100, efs: int = 0, semimask=None,
+                         heuristic="adaptive_local") -> SearchResult:
+        """DiskANN-regime search for one query: int8-resident beam + exact
+        re-rank (paper Section 5.8).
+
+        The beam loop runs on the int8 codes (the fused dequantizing
+        gather+distance; no [n, d] f32 store is made) and keeps the full
+        ``efs`` frontier, which is re-ranked on the host against the
+        :class:`ExactTier` f32 rows and cut to ``k``. Results are tensors
+        on the index's device.
+        """
+        qidx = self._quantized_view()
+        efs = max(efs or 2 * k, k)
+        sel = (qidx.full_semimask() if semimask is None
+               else qidx.pack_semimask(semimask))
+        qv = self._prep_query(q)
+        # full-beam params (k == efs): the exact tier does the final cut
+        res = search(qidx.graph, qv, sel, self._params(efs, efs, heuristic),
+                     sigma_g=qidx.sigma(sel))
+        return self._reranked(qidx.exact.rerank(_host(qv), _host(res.ids),
+                                                k), res.stats)
+
+    def search_quantized_many(self, Q, k: int = 100, efs: int = 0,
+                              semimask=None, heuristic="adaptive_local"
+                              ) -> SearchResult:
+        """Batched DiskANN-regime search: the int8-resident store under the
+        batched-frontier engine, then a lane-vectorized exact re-rank
+        against the f32 tier. Lane for lane equal to
+        :meth:`search_quantized` (``semimask`` takes the shared and
+        per-lane forms of :meth:`search_many`)."""
+        qidx = self._quantized_view()
+        efs = max(efs or 2 * k, k)
+        sel = (qidx.full_semimask() if semimask is None
+               else qidx.pack_semimask(semimask))
+        Qp = self._prep_query(Q)
+        res = search_many(qidx.graph, Qp, sel,
+                          self._params(efs, efs, heuristic),
+                          sigma_g=qidx.sigma(sel))
+        return self._reranked(qidx.exact.rerank_many(_host(Qp),
+                                                     _host(res.ids), k),
+                              res.stats)
+
+    def _reranked(self, exact: tuple[np.ndarray, np.ndarray],
+                  stats) -> SearchResult:
+        """The exact tier's (dists, ids) as tensors on the index's device,
+        with the beam search's stats."""
+        d, ids = exact
+        return SearchResult(dists=torch.from_numpy(d).to(self.device),
+                            ids=torch.from_numpy(ids).to(self.device),
+                            stats=stats)
+
     # -- oracles ------------------------------------------------------------
     def brute_force(self, Q, k: int = 100, semimask=None):
-        """Exact filtered kNN over the index's vectors: (dists, ids)."""
+        """Exact filtered kNN over the index's vectors: (dists, ids).
+
+        On a quantized-resident index it scores the exact f32 rows of the
+        host tier, not the codes (a graph carried across without its tier
+        falls back to dequantizing: this is an oracle, not a search path).
+        """
         Q = torch.atleast_2d(self._prep_query(Q))
         mask = None
         if semimask is not None:
             mask = bitset.unpack(self.pack_semimask(semimask), self.graph.n)
-        return brute_force_topk(Q, self.graph.vectors, k, self.config.metric,
-                                mask=mask)
+        vectors = self.graph.vectors
+        if self.is_quantized:
+            # np.array: an owned, writable copy (the tier may be a
+            # read-only memmap)
+            vectors = (torch.from_numpy(np.array(self.exact.vectors))
+                       .to(self.device) if self.exact is not None
+                       else dequantize(vectors))
+        return brute_force_topk(Q, vectors, k, self.config.metric, mask=mask)
 
     def recall(self, res_ids, true_ids) -> float:
         """recall@k with -1-padding awareness (both arrays [k] or [b, k])."""

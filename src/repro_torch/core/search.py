@@ -12,10 +12,11 @@ Paper Algorithm 2 with the Section 3 heuristics, one query at a time:
   ``t_dc`` all distances computed (directed also pays for ordering).
 
 This is the port's oracle for the batched engine
-(``repro_torch.core.search_batch``): every distance goes through the same
-primitive, ``kernels.ops.gather_distance_batch`` (here on a one-lane
-batch), so a batched lane and this search agree bit for bit on either
-device. The loop reads the device once or twice per iteration to steer
+(``repro_torch.core.search_batch``): every distance goes through
+:func:`_gdist`, the single-query entries of ``kernels.ops`` (f32, or int8
+for a quantized-resident graph), which are one-lane launches of the
+batched engine's kernels, so a batched lane and this search agree bit for
+bit on either device. The loop reads the device once or twice per iteration to steer
 Python control flow; it is the reference, not the throughput path.
 """
 
@@ -29,6 +30,7 @@ from repro_torch.core import bitset
 from repro_torch.core.graph import HnswGraph
 from repro_torch.core.heuristics import (LENIENCY_FACTOR, UB_ONEHOP_S,
                                          Heuristic, adaptive_rule)
+from repro_torch.core.quantize import QuantizedStore
 from repro_torch.kernels import ops
 
 
@@ -57,11 +59,14 @@ class SearchResult(NamedTuple):
     stats: SearchStats
 
 
-def _gdist(q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
-           metric: str) -> torch.Tensor:
-    """dist(q, vectors[ids]) through the engines' one distance primitive."""
-    return ops.gather_distance_batch(q[None, :], vectors, ids[None, :],
-                                     metric)[0]
+def _gdist(q: torch.Tensor, vectors: torch.Tensor | QuantizedStore,
+           ids: torch.Tensor, metric: str) -> torch.Tensor:
+    """dist(q, vectors[ids]): the oracle's one store dispatch point (int8
+    codes + scales for a store, f32 rows otherwise)."""
+    if isinstance(vectors, QuantizedStore):
+        return ops.quantized_gather_distance(q, vectors.codes, vectors.scale,
+                                             ids, metric)
+    return ops.gather_distance(q, vectors, ids, metric)
 
 
 def _i32(x, device: torch.device) -> torch.Tensor:

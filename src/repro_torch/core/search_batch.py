@@ -28,8 +28,10 @@ loop. A lane that has converged is frozen by the live mask, so the extra
 masked iterations change nothing.
 
 Every distance goes through :func:`batch_gather_dist`, i.e.
-``kernels.ops.gather_distance_batch``: the hand-written CUDA kernel for
-CUDA tensors, its plain PyTorch version for CPU tensors.
+``kernels.ops.gather_distance_batch`` for f32 vectors and
+``kernels.ops.quantized_gather_distance_batch`` for an int8-resident
+store: the hand-written CUDA kernels for CUDA tensors, their plain PyTorch
+versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 from repro_torch.core import bitset
 from repro_torch.core.graph import HnswGraph
 from repro_torch.core.heuristics import Heuristic, adaptive_rule
+from repro_torch.core.quantize import QuantizedStore
 from repro_torch.core.search import (SearchParams, SearchResult, SearchStats,
                                      _dedupe_keep_first)
 from repro_torch.kernels import ops
@@ -61,9 +64,15 @@ class _BatchState(NamedTuple):
     picks: torch.Tensor      # int32[B, 3]
 
 
-def batch_gather_dist(Q: torch.Tensor, vectors: torch.Tensor,
+def batch_gather_dist(Q: torch.Tensor,
+                      vectors: torch.Tensor | QuantizedStore,
                       ids: torch.Tensor, metric: str) -> torch.Tensor:
-    """The engine's distance primitive: dist(Q[b], vectors[ids[b]])."""
+    """The engine's distance primitive and its one store dispatch point:
+    dist(Q[b], vectors[ids[b]]) over f32 rows, or over int8 codes + scales
+    for a store (dequantized per gathered row inside the kernel)."""
+    if isinstance(vectors, QuantizedStore):
+        return ops.quantized_gather_distance_batch(Q, vectors.codes,
+                                                   vectors.scale, ids, metric)
     return ops.gather_distance_batch(Q, vectors, ids, metric)
 
 

@@ -1,9 +1,12 @@
 """Wrapper of the CUDA gather + distance kernel (``csrc/gather_distance.cu``).
 
-Replaces the TPU kernel ``repro/kernels/gather_distance.py::
-gather_distance_batch_pallas``; the source note in the ``.cu`` file gives
-the kernel's bound and design. The plain PyTorch version of the same
-function is ``kernels/ref.py::gather_distance_batch``.
+Replaces the TPU kernels ``repro/kernels/gather_distance.py::
+gather_distance_batch_pallas`` (:func:`gather_distance_batch`) and
+``gather_distance_pallas`` (:func:`gather_distance`, a one-lane launch of
+the same kernel, so the single-query oracle and the batched engine share
+one summation order); the source note in the ``.cu`` file gives the
+kernel's bound and design. The plain PyTorch versions are
+``kernels/ref.py::gather_distance_batch`` and ``gather_distance``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from repro_torch.kernels import _build
 
 #: kernel launches made by :func:`gather_distance_batch` in this process
 LAUNCHES = 0
+#: one-lane launches made by :func:`gather_distance` in this process
+ONE_LANE_LAUNCHES = 0
 
 _METRIC_CODE = {"l2": 0, "cos": 1, "dot": 2}
 _INT32_MAX = 2 ** 31 - 1
@@ -40,6 +45,25 @@ def gather_distance_batch(Q: torch.Tensor, vectors: torch.Tensor,
     the current stream and raises if the launch fails.
     """
     global LAUNCHES
+    out, launched = _launch(Q, vectors, ids, metric)
+    LAUNCHES += launched
+    return out
+
+
+def gather_distance(q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
+                    metric: str) -> torch.Tensor:
+    """f32[K] = dist(q, vectors[ids[j]]): one lane of the batched kernel."""
+    global ONE_LANE_LAUNCHES
+    if q.ndim != 1 or ids.ndim != 1:
+        raise ValueError("expected q[d] and ids[K]")
+    out, launched = _launch(q[None, :], vectors, ids[None, :], metric)
+    ONE_LANE_LAUNCHES += launched
+    return out[0]
+
+
+def _launch(Q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
+            metric: str) -> tuple[torch.Tensor, bool]:
+    """Check the inputs, launch the kernel; (out, whether it launched)."""
     for name, t in (("Q", Q), ("vectors", vectors), ("ids", ids)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} lies on {t.device}; the CUDA kernel "
@@ -68,7 +92,7 @@ def gather_distance_batch(Q: torch.Tensor, vectors: torch.Tensor,
         raise ValueError(f"unknown metric {metric!r}")
     out = torch.empty((bsz, k), dtype=torch.float32, device=Q.device)
     if bsz == 0 or k == 0:
-        return out
+        return out, False
     fn, err_str = _kernel()
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -77,5 +101,4 @@ def gather_distance_batch(Q: torch.Tensor, vectors: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"gather_distance_batch kernel launch failed: "
                            f"{err_str(rc).decode()} (cudaError {rc})")
-    LAUNCHES += 1
-    return out
+    return out, True

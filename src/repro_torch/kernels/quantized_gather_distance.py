@@ -1,0 +1,117 @@
+"""Wrapper of the CUDA int8 gather + distance kernel
+(``csrc/quantized_gather_distance.cu``).
+
+Replaces the TPU kernels ``repro/kernels/gather_distance.py::
+quantized_gather_distance_batch_pallas`` (:func:`quantized_gather_distance_batch`)
+and ``quantized_gather_distance_pallas`` (:func:`quantized_gather_distance`,
+a one-lane launch of the same kernel, so the single-query oracle and the
+batched engine share one summation order); the source note in the ``.cu``
+file gives the kernel's bound and design. The plain PyTorch versions are
+``kernels/ref.py::quantized_gather_distance_batch`` and
+``quantized_gather_distance``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: kernel launches made by :func:`quantized_gather_distance_batch` in this
+#: process
+LAUNCHES = 0
+#: one-lane launches made by :func:`quantized_gather_distance` in this process
+ONE_LANE_LAUNCHES = 0
+
+_METRIC_CODE = {"l2": 0, "cos": 1, "dot": 2}
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _kernel():
+    lib = _build.load("quantized_gather_distance")
+    fn = lib.navix_quantized_gather_distance_batch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.navix_quantized_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.navix_quantized_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.navix_quantized_cuda_error_string
+
+
+def quantized_gather_distance_batch(Q: torch.Tensor, codes: torch.Tensor,
+                                    scale: torch.Tensor, ids: torch.Tensor,
+                                    metric: str) -> torch.Tensor:
+    """f32[B, K] = dist(Q[b], scale[id] * codes[id]), id = ids[b, j], on the
+    CUDA device.
+
+    Q f32[B, d], codes int8[n, d], scale f32[n], ids int32[B, K], all
+    contiguous and on one CUDA device; ids < 0 give +inf, ids >= n read row
+    n-1. Launches on the current stream and raises if the launch fails.
+    """
+    global LAUNCHES
+    out, launched = _launch(Q, codes, scale, ids, metric)
+    LAUNCHES += launched
+    return out
+
+
+def quantized_gather_distance(q: torch.Tensor, codes: torch.Tensor,
+                              scale: torch.Tensor, ids: torch.Tensor,
+                              metric: str) -> torch.Tensor:
+    """f32[K] = dist(q, scale[id] * codes[id]): one lane of the batched
+    kernel."""
+    global ONE_LANE_LAUNCHES
+    if q.ndim != 1 or ids.ndim != 1:
+        raise ValueError("expected q[d] and ids[K]")
+    out, launched = _launch(q[None, :], codes, scale, ids[None, :], metric)
+    ONE_LANE_LAUNCHES += launched
+    return out[0]
+
+
+def _launch(Q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+            ids: torch.Tensor, metric: str) -> tuple[torch.Tensor, bool]:
+    """Check the inputs, launch the kernel; (out, whether it launched)."""
+    if Q.dtype != torch.float32 or scale.dtype != torch.float32:
+        raise TypeError(f"Q and scale must be float32, got {Q.dtype} and "
+                        f"{scale.dtype}")
+    if codes.dtype != torch.int8:
+        raise TypeError(f"codes must be int8, got {codes.dtype}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32, got {ids.dtype}")
+    named = (("Q", Q), ("codes", codes), ("scale", scale), ("ids", ids))
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} lies on {t.device}; the CUDA kernel "
+                             f"takes CUDA tensors only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if len({t.device for _, t in named}) != 1:
+        raise ValueError(f"Q, codes, scale and ids lie on different devices "
+                         f"({Q.device}, {codes.device}, {scale.device}, "
+                         f"{ids.device})")
+    if Q.ndim != 2 or codes.ndim != 2 or scale.ndim != 1 or ids.ndim != 2:
+        raise ValueError("expected Q[B, d], codes[n, d], scale[n], ids[B, K]")
+    (bsz, d), (n, dc), (bi, k) = Q.shape, codes.shape, ids.shape
+    if dc != d or bi != bsz or scale.shape[0] != n:
+        raise ValueError(f"shape mismatch: Q{tuple(Q.shape)}, "
+                         f"codes{tuple(codes.shape)}, "
+                         f"scale{tuple(scale.shape)}, ids{tuple(ids.shape)}")
+    if n == 0 or d == 0:
+        raise ValueError("codes must hold at least one row of width > 0")
+    if max(bsz, k, n, d) > _INT32_MAX:
+        raise ValueError("a dimension exceeds the kernel's int32 range")
+    if metric not in _METRIC_CODE:
+        raise ValueError(f"unknown metric {metric!r}")
+    out = torch.empty((bsz, k), dtype=torch.float32, device=Q.device)
+    if bsz == 0 or k == 0:
+        return out, False
+    fn, err_str = _kernel()
+    with torch.cuda.device(Q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(Q.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                ids.data_ptr(), out.data_ptr(), bsz, k, n, d,
+                _METRIC_CODE[metric], stream)
+    if rc != 0:
+        raise RuntimeError(f"quantized_gather_distance_batch kernel launch "
+                           f"failed: {err_str(rc).decode()} (cudaError {rc})")
+    return out, True

@@ -26,7 +26,36 @@ def gather_distance_batch(Q: torch.Tensor, vectors: torch.Tensor,
     n-1, as the reference's clamping gather does).
     """
     safe = ids.clamp(0, vectors.shape[0] - 1).long()
-    rows = vectors[safe].to(torch.float32)                   # [b, k, d]
+    return _dist_rows(Q, vectors[safe].to(torch.float32), ids, metric)
+
+
+def quantized_gather_distance(q: torch.Tensor, codes: torch.Tensor,
+                              scale: torch.Tensor, ids: torch.Tensor,
+                              metric: str) -> torch.Tensor:
+    """f32[k]: dist(q, scale[ids] * codes[ids]); ids < 0 -> +inf."""
+    return quantized_gather_distance_batch(q[None, :], codes, scale,
+                                           ids[None, :], metric)[0]
+
+
+def quantized_gather_distance_batch(Q: torch.Tensor, codes: torch.Tensor,
+                                    scale: torch.Tensor, ids: torch.Tensor,
+                                    metric: str) -> torch.Tensor:
+    """f32[b, k]: dist(Q[b], scale[ids[b]] * codes[ids[b]]); ids < 0 ->
+    +inf, ids clamped into ``[0, n-1]``.
+
+    Each gathered row is dequantized first (an f32 product per element),
+    then the same distance form as :func:`gather_distance_batch`.
+    """
+    safe = ids.clamp(0, codes.shape[0] - 1).long()
+    rows = (codes[safe].to(torch.float32)
+            * scale[safe].to(torch.float32)[..., None])          # [b, k, d]
+    return _dist_rows(Q, rows, ids, metric)
+
+
+def _dist_rows(Q: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
+               metric: str) -> torch.Tensor:
+    """dist(Q[b], rows[b, j]) over gathered f32 rows [b, k, d]; ids < 0 ->
+    +inf."""
     Qf = Q.to(torch.float32)[:, None, :]
     if metric == "l2":
         diff = rows - Qf

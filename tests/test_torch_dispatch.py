@@ -12,7 +12,9 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.core.graph import FIELDS, graph_from_numpy
 from repro_torch.core.navix import NavixConfig, NavixIndex
-from repro_torch.kernels import _build, gather_distance, ops, ref
+from repro_torch.core.quantize import quantize
+from repro_torch.kernels import (_build, gather_distance, ops,
+                                 quantized_gather_distance, ref)
 
 RNG = np.random.default_rng(0)
 
@@ -39,10 +41,41 @@ def test_cpu_tensor_runs_plain_version_and_launches_nothing(metric):
     assert torch.equal(got, ref.gather_distance_batch(Q, X, ids, metric))
 
 
+@pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
+def test_cpu_store_runs_plain_version_and_launches_nothing(metric):
+    Q, X, ids = _inputs()
+    store = quantize(X)
+    counts = (quantized_gather_distance.LAUNCHES,
+              quantized_gather_distance.ONE_LANE_LAUNCHES,
+              gather_distance.LAUNCHES, gather_distance.ONE_LANE_LAUNCHES)
+    got = ops.quantized_gather_distance_batch(Q, store.codes, store.scale,
+                                              ids, metric)
+    one = ops.quantized_gather_distance(Q[1], store.codes, store.scale,
+                                        ids[1], metric)
+    f32_one = ops.gather_distance(Q[1], X, ids[1], metric)
+    assert counts == (quantized_gather_distance.LAUNCHES,
+                      quantized_gather_distance.ONE_LANE_LAUNCHES,
+                      gather_distance.LAUNCHES,
+                      gather_distance.ONE_LANE_LAUNCHES)
+    assert torch.equal(got, ref.quantized_gather_distance_batch(
+        Q, store.codes, store.scale, ids, metric))
+    assert torch.equal(one, got[1])
+    assert torch.equal(f32_one, ref.gather_distance(Q[1], X, ids[1], metric))
+
+
 def test_mixed_devices_raise():
     Q, X, ids = _inputs()
     with pytest.raises(ValueError, match="different devices"):
         ops.gather_distance_batch(Q.to("meta"), X, ids)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.gather_distance(Q[0], X.to("meta"), ids[0])
+    store = quantize(X)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.quantized_gather_distance_batch(Q, store.codes,
+                                            store.scale.to("meta"), ids)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.quantized_gather_distance(Q[0], store.codes.to("meta"),
+                                      store.scale, ids[0])
 
 
 def test_unsupported_device_raises():
@@ -55,6 +88,24 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     Q, X, ids = _inputs()
     with pytest.raises(ValueError, match="CUDA tensors only"):
         gather_distance.gather_distance_batch(Q, X, ids, "l2")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        gather_distance.gather_distance(Q[0], X, ids[0], "l2")
+    store = quantize(X)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        quantized_gather_distance.quantized_gather_distance_batch(
+            Q, store.codes, store.scale, ids, "l2")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        quantized_gather_distance.quantized_gather_distance(
+            Q[0], store.codes, store.scale, ids[0], "l2")
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32])
+def test_int8_wrapper_refuses_codes_of_another_type(dtype):
+    Q, X, ids = _inputs()
+    store = quantize(X)
+    with pytest.raises(TypeError, match="codes must be int8"):
+        quantized_gather_distance.quantized_gather_distance_batch(
+            Q, store.codes.to(dtype), store.scale, ids, "l2")
 
 
 def test_resolve_device():
