@@ -3,9 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout and holds
-each against its plain PyTorch version (the f32 and the int8 gather
-distance, batched and as one-lane launches), builds a GIST1M-shaped index
+Builds the port's CUDA kernels from the sources in this checkout (one nvcc
+each, in parallel) and holds each against its plain PyTorch version (the
+f32 and the int8 gather distance, batched and as one-lane launches; the
+all-pairs f32 and int8 distances at a 1M-candidate retrieval, a serve
+batch and GIST width; the CSR segment sum on the ogb_products graph),
+answers 8 recsys retrieval requests of BST at full width (1M candidates
+out of a 5M-item table, through the all-pairs kernel, each answer held
+against the plain path), builds a GIST1M-shaped index
 on the card (n = 1,000,000 x d = 960, l2, the paper's index settings),
 answers filtered batched queries at the paper's selectivities through
 ``NavixIndex.search_many``, makes the index int8-resident with
@@ -30,6 +35,8 @@ import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -46,8 +53,11 @@ from repro_torch.core.navix import NavixIndex  # noqa: E402
 from repro_torch.core.quantize import QuantizedStore, quantize  # noqa: E402
 from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
 from repro_torch.storage.columnar import ExactTier  # noqa: E402
-from repro_torch.kernels import (_build, gather_distance,  # noqa: E402
-                                 quantized_gather_distance, ref)
+from repro_torch.config.base import get_arch  # noqa: E402
+from repro_torch.kernels import (_build, distance_matrix,  # noqa: E402
+                                 gather_distance, ops, quantized,
+                                 quantized_gather_distance, ref, segment_sum)
+from repro_torch.models import api as model_api  # noqa: E402
 
 # GIST1M (TEXMEX; the paper's Table 2): 1M vectors of width 960, l2
 N_GIST = 1_000_000
@@ -62,8 +72,26 @@ PARITY_LANES = 32           # per sigma and per arm (f32, int8)
 PARITY_SIGMAS = (1.0, 0.1, 0.01)
 # kernel vs plain version: a different f32 summation order
 RTOL, ATOL = 1e-5, 1e-4
-# the card's memory rate (H100 SXM data sheet) for the bound
+# the card's memory rate and f32 rate outside the tensor cores (H100 SXM
+# data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# the reference's tolerances for the all-pairs kernels (tests/test_kernels.py)
+# and the segment sum's (summed in another order than index_add_'s atomics)
+MATRIX_TOL = 1e-4
+QUANT_TOL = 1e-3
+SEGMENT_TOL = 1e-5
+# kernel 5 at the retrieval step's shape, a serve_p99 batch and GIST width
+MATRIX_SHAPES = ((1, 1_000_000, 32), (512, 1_000_000, 32),
+                 (1024, 65_536, 960))
+# kernel 6: an int8 brute-force scan, and GIST width
+QUANT_SHAPES = ((8, 1_000_000, 960), (1024, 65_536, 960))
+# kernel 7: meshgraphnet's ogb_products graph (configs/meshgraphnet.py) at its
+# d_hidden, edges padded to a multiple of 512
+OGB_NODES, OGB_EDGES, OGB_D = 2_449_029, 61_859_140, 128
+RETRIEVAL_ARCH = "bst"
+RETRIEVAL_REQUESTS = 8
+RETRIEVAL_K = 100
 # device cycles of spin queued per timed call: covers the host's time to
 # launch one call (tens of microseconds) at the card's clock
 SPIN_CYCLES_PER_CALL = 400_000
@@ -72,6 +100,7 @@ SECTOR_BYTES = 32
 F32_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
 INT8_SOURCE = "src/repro_torch/kernels/csrc/quantized_gather_distance.cu"
 TPU_KERNELS = "src/repro/kernels/gather_distance.py"
+CSRC = "src/repro_torch/kernels/csrc"
 #: name -> (CUDA source, TPU kernel it replaces); the single-query forms are
 #: one-lane launches of the batched kernels
 KERNELS = {
@@ -79,7 +108,17 @@ KERNELS = {
     "quantized_gather_distance_batch": (INT8_SOURCE, f"{TPU_KERNELS}:173"),
     "gather_distance": (F32_SOURCE, f"{TPU_KERNELS}:39"),
     "quantized_gather_distance": (INT8_SOURCE, f"{TPU_KERNELS}:91"),
+    "distance_matrix": (f"{CSRC}/distance_matrix.cu",
+                        "src/repro/kernels/distance_matrix.py:59"),
+    "quantized_distance_matrix": (f"{CSRC}/quantized_distance.cu",
+                                  "src/repro/kernels/quantized.py:61"),
+    "csr_segment_sum": (f"{CSRC}/segment_sum.cu",
+                        "src/repro/kernels/segment_sum.py:59"),
 }
+#: the sources ``_build`` compiles, one nvcc each: the five kernels' and the
+#: CUDA error message every wrapper raises with
+SOURCES = ("gather_distance", "quantized_gather_distance", "distance_matrix",
+           "quantized_distance", "segment_sum", "cuda_error")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -116,13 +155,17 @@ def launch_counts() -> dict[str, int]:
             "quantized_gather_distance_batch":
                 quantized_gather_distance.LAUNCHES,
             "quantized_gather_distance":
-                quantized_gather_distance.ONE_LANE_LAUNCHES}
+                quantized_gather_distance.ONE_LANE_LAUNCHES,
+            "distance_matrix": distance_matrix.LAUNCHES,
+            "quantized_distance_matrix": quantized.LAUNCHES,
+            "csr_segment_sum": segment_sum.LAUNCHES}
 
 
 def reset_counts() -> None:
     gather_distance.LAUNCHES = gather_distance.ONE_LANE_LAUNCHES = 0
     quantized_gather_distance.LAUNCHES = 0
     quantized_gather_distance.ONE_LANE_LAUNCHES = 0
+    distance_matrix.LAUNCHES = quantized.LAUNCHES = segment_sum.LAUNCHES = 0
 
 
 def gather_bound_ms(Q: torch.Tensor, ids: torch.Tensor,
@@ -138,15 +181,25 @@ def gather_bound_ms(Q: torch.Tensor, ids: torch.Tensor,
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def kernel_entry(name: str, max_abs: float, timing: tuple) -> dict:
+def kernel_entry(name: str, max_abs: float, timing: tuple,
+                 bound_by: str = "bytes",
+                 library_ms: float | None = None) -> dict:
     """One entry of the ``kernels`` JSON line (launches are filled in from
     the main path's run)."""
     source, replaces = KERNELS[name]
     ms, plain_ms, bound_ms = timing
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms, what bounds it): the larger of the bytes over the memory
+    rate and the f32 operations over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def print_ptxas(name: str) -> None:
@@ -402,6 +455,286 @@ def phase_kernel_int8() -> list[dict]:
     return [kernel_entry("quantized_gather_distance_batch",
                          max_abs[N_QUERIES], timings[64]),
             kernel_entry("quantized_gather_distance", max_abs[1], one)]
+
+
+def phase_build_kernels() -> None:
+    """Build every kernel source at once (one nvcc each, in parallel)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_build.load, SOURCES))
+    nvcc_s = {n: _build.build_info.get(n, {}).get("seconds", 0.0)
+              for n in SOURCES}
+    for name in SOURCES:
+        print_ptxas(name)
+    print(f"[kernel] built {len(SOURCES)} sources in parallel in "
+          f"{time.perf_counter() - t0:.3f}s (nvcc: "
+          + ", ".join(f"{n} {s:.3f}s" for n, s in nvcc_s.items()) + ")",
+          flush=True)
+
+
+def _check_close(got: torch.Tensor, want: torch.Tensor, tol: float,
+                 where: str) -> float:
+    """Kernel vs plain version within rtol = atol = ``tol``, all finite;
+    returns the max abs error."""
+    sync()
+    check(bool(torch.isfinite(got).all()),
+          f"non-finite kernel output ({where})")
+    err = (got - want).abs()
+    check(bool((err <= tol + tol * want.abs()).all()),
+          f"kernel disagrees with its plain version ({where}): max abs err "
+          f"{float(err.max())}")
+    return float(err.max())
+
+
+def _matrix_bound(b: int, n: int, d: int, code_bytes: int,
+                  metric: str) -> tuple[float, str]:
+    """Least time of one all-pairs call: Q, X (4 or 1 bytes a value, and a
+    4-byte scale a row for int8 codes) and D moved once; 2bnd flops, and
+    the norms' 2(b + n)d for l2."""
+    nbytes = 4 * b * d + code_bytes * n * d + 4 * b * n
+    if code_bytes == 1:
+        nbytes += 4 * n
+    flops = 2 * b * n * d + (2 * (b + n) * d if metric == "l2" else 0)
+    return bound(nbytes, flops)
+
+
+def _timing_line(name: str, rows: dict, library: str | None,
+                 axes: str = "(b, n, d)") -> str:
+    parts = []
+    for shape, (ms, plain_ms, (b_ms, by), lib_ms) in rows.items():
+        lib = (f", {library} {lib_ms:.4f} ms ({100 * b_ms / lib_ms:.1f}%)"
+               if lib_ms is not None else "")
+        parts.append(f"{shape}: kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% "
+                     f"of the bound), plain {plain_ms:.4f} ms "
+                     f"({100 * b_ms / plain_ms:.1f}%){lib}, bound "
+                     f"{b_ms:.4f} ms ({by})")
+    return f"[kernel] {name} {axes}: " + "; ".join(parts)
+
+
+def phase_kernel_matrix() -> dict:
+    """Kernel 5 against its plain version at every metric and shape, then
+    timed (dot, the retrieval's metric) beside ``torch.matmul(Q, X.T)``."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    max_abs, rows = 0.0, {}
+    for b, n, d in MATRIX_SHAPES:
+        Q = torch.randn((b, d), generator=gen, device="cuda")
+        X = torch.randn((n, d), generator=gen, device="cuda")
+        for metric in ("l2", "cos", "dot"):
+            got = distance_matrix.distance_matrix(Q, X, metric)
+            max_abs = max(max_abs, _check_close(
+                got, ref.distance_matrix(Q, X, metric), MATRIX_TOL,
+                f"distance_matrix {metric} ({b}, {n}, {d})"))
+            del got
+        rows[(b, n, d)] = (
+            cuda_ms(lambda: distance_matrix.distance_matrix(Q, X, "dot"),
+                    reps=20),
+            cuda_ms(lambda: ref.distance_matrix(Q, X, "dot"), reps=10),
+            _matrix_bound(b, n, d, 4, "dot"),
+            cuda_ms(lambda: torch.matmul(Q, X.T), reps=20))
+        del Q, X
+        torch.cuda.empty_cache()
+    print("[kernel] distance_matrix == plain version, l2/cos/dot, at "
+          + ", ".join(str(s) for s in MATRIX_SHAPES)
+          + f": max abs err {max_abs:.3e} (rtol = atol = {MATRIX_TOL})",
+          flush=True)
+    print(_timing_line("distance_matrix, dot", rows,
+                       "torch.matmul(Q, X.T) (TF32 off)"), flush=True)
+    ms, plain_ms, (b_ms, by), lib_ms = rows[MATRIX_SHAPES[0]]
+    return kernel_entry("distance_matrix", max_abs, (ms, plain_ms, b_ms), by,
+                        lib_ms)
+
+
+def phase_kernel_quantized() -> dict:
+    """Kernel 6 against its plain version at every metric and shape (with
+    zero-scale rows), timed for l2, and driven once through its ops entry
+    (its whole path) at the scan's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    max_abs, rows, launches = 0.0, {}, 0
+    for b, n, d in QUANT_SHAPES:
+        Q = torch.randn((b, d), generator=gen, device="cuda")
+        codes = torch.randint(-127, 128, (n, d), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        scale = torch.rand((n,), generator=gen, device="cuda") * 0.02 + 1e-3
+        scale[::1000] = 0.0                          # all-zero rows
+        for metric in ("l2", "cos", "dot"):
+            got = quantized.quantized_distance_matrix(Q, codes, scale, metric)
+            max_abs = max(max_abs, _check_close(
+                got, ref.quantized_distance_matrix(Q, codes, scale, metric),
+                QUANT_TOL, f"quantized_distance {metric} ({b}, {n}, {d})"))
+            del got
+        rows[(b, n, d)] = (
+            cuda_ms(lambda: quantized.quantized_distance_matrix(
+                Q, codes, scale, "l2"), reps=10),
+            cuda_ms(lambda: ref.quantized_distance_matrix(
+                Q, codes, scale, "l2"), reps=5),
+            _matrix_bound(b, n, d, 1, "l2"), None)
+        if (b, n, d) == QUANT_SHAPES[0]:
+            reset_counts()                           # its path: the ops entry
+            ops.quantized_distance_matrix(Q, codes, scale, "l2")
+            sync()
+            launches = quantized.LAUNCHES
+        del Q, codes, scale
+        torch.cuda.empty_cache()
+    print("[kernel] quantized_distance == plain version, l2/cos/dot, at "
+          + ", ".join(str(s) for s in QUANT_SHAPES)
+          + f", every 1000th scale 0: max abs err {max_abs:.3e} (rtol = atol"
+          f" = {QUANT_TOL})", flush=True)
+    print(_timing_line("quantized_distance, l2", rows, None)
+          + "; no single PyTorch call multiplies f32 rows by scaled int8 "
+          "rows (library: none)", flush=True)
+    ms, plain_ms, (b_ms, by), _ = rows[QUANT_SHAPES[0]]
+    entry = kernel_entry("quantized_distance_matrix", max_abs,
+                         (ms, plain_ms, b_ms), by)
+    entry["launches"] = launches
+    return entry
+
+
+def phase_kernel_segment() -> dict:
+    """Kernel 7 on the ogb_products graph at d = 128: messages made on the
+    card, destinations uniform and sorted, padding at the end. The kernel
+    against its plain version (``index_add_``), timed beside
+    ``torch.segment_reduce``, and driven once through its ops entry (its
+    whole path) with -1 padding."""
+    n, e, d = OGB_NODES, OGB_EDGES, OGB_D
+    e_pad = -(-e // 512) * 512
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dst = torch.sort(torch.randint(0, n, (e,), generator=gen, device="cuda",
+                                   dtype=torch.int32)).values
+    pad = torch.full((e_pad - e,), segment_sum.PAD_SENTINEL,
+                     dtype=torch.int32, device="cuda")
+    dst_sent = torch.cat([dst, pad])
+    dst_minus = torch.cat([dst, torch.full_like(pad, -1)])
+    del dst, pad
+    msgs = torch.randn((e_pad, d), generator=gen, device="cuda")
+    got = segment_sum.csr_segment_sum(msgs, dst_sent, n)
+    max_abs = _check_close(got, ref.csr_segment_sum(msgs, dst_sent, n),
+                           SEGMENT_TOL, f"csr_segment_sum n={n} E={e} d={d}")
+    reset_counts()                                   # its path: the ops entry
+    via_ops = ops.csr_segment_sum(msgs, dst_minus, n)
+    sync()
+    launches = segment_sum.LAUNCHES
+    check(torch.equal(via_ops, got),
+          "the ops entry on -1 padding != the kernel on sentinel padding")
+    del got, via_ops, dst_minus
+    row_ptr = segment_sum.row_pointers(dst_sent, n)
+    lengths = torch.cat([row_ptr.diff(), e_pad - row_ptr[-1:]])
+    b_ms, by = bound(4 * e * d + 4 * e_pad + 4 * n * d, e * d)
+    t = (cuda_ms(lambda: segment_sum.csr_segment_sum(msgs, dst_sent, n),
+                 reps=5),
+         cuda_ms(lambda: ref.csr_segment_sum(msgs, dst_sent, n), reps=3),
+         (b_ms, by),
+         cuda_ms(lambda: torch.segment_reduce(msgs, "sum", lengths=lengths,
+                                              axis=0, unsafe=True), reps=3))
+    print(f"[kernel] csr_segment_sum == plain version (index_add_) on "
+          f"ogb_products, n={n:,} E={e:,} (padded to {e_pad:,}) d={d}: max "
+          f"abs err {max_abs:.3e} (rtol = atol = {SEGMENT_TOL}); the ops "
+          "entry on -1 padding equals the kernel on sentinel padding",
+          flush=True)
+    print(_timing_line("csr_segment_sum", {(n, e, d): t},
+                       "torch.segment_reduce(sum, lengths)", "(n, E, d)"),
+          flush=True)
+    del msgs, dst_sent, row_ptr, lengths
+    torch.cuda.empty_cache()
+    entry = kernel_entry("csr_segment_sum", max_abs, (t[0], t[1], b_ms), by,
+                         t[3])
+    entry["launches"] = launches
+    return entry
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_recsys() -> int:
+    """The recsys retrieval step of BST at full width: its parameters made
+    on the card, then RETRIEVAL_REQUESTS requests at ``retrieval_cand``,
+    each timed on the host clock and its kernel under CUDA events, each
+    answer checked against the same step through the plain version on the
+    card. Returns the kernel's launches in the requests."""
+    arch = get_arch(RETRIEVAL_ARCH)
+    cfg, shape = arch.config, arch.shape("retrieval_cand")
+    sync()
+    t0 = time.perf_counter()
+    params = model_api.model_api(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    sync()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    check(all(t.device.type == "cuda" for t in leaves),
+          "a parameter is not on the card")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    step = model_api.make_retrieval_step(cfg, k=RETRIEVAL_K)
+    batches = [model_api.make_batch(
+        cfg, shape, torch.Generator(device="cuda").manual_seed(100 + r),
+        "cuda") for r in range(RETRIEVAL_REQUESTS)]
+    print(f"[recsys] {arch.arch_id} ({arch.source}) at full width: "
+          f"init_recsys on the card {init_s:.3f}s, {nbytes:,} parameter "
+          f"bytes ({cfg.total_rows():,} embedding rows x {cfg.embed_dim}); "
+          f"{RETRIEVAL_REQUESTS} requests at {shape.name} "
+          f"{dict(shape.params)}, k={RETRIEVAL_K}", flush=True)
+
+    events = []
+    kernel = distance_matrix.distance_matrix
+
+    def kernel_with_events(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = kernel(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    step(params, batches[0])                          # warm-up
+    sync()
+    reset_counts()                                    # the main path
+    wall_ms, kernel_ms, answers = [], [], []
+    with mock.patch.object(distance_matrix, "distance_matrix",
+                           kernel_with_events):
+        for batch in batches:
+            events.clear()
+            sync()
+            t0 = time.perf_counter()
+            answers.append(step(params, batch))
+            sync()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            check(len(events) == 1,
+                  f"a request called the kernel {len(events)} times")
+            kernel_ms.append(events[0][0].elapsed_time(events[0][1]))
+    launches = distance_matrix.LAUNCHES
+    check(launches == RETRIEVAL_REQUESTS,
+          f"distance_matrix launched {launches} times in "
+          f"{RETRIEVAL_REQUESTS} requests")
+    with mock.patch.object(distance_matrix, "distance_matrix",
+                           ref.distance_matrix):
+        for r, (batch, (vals, ids)) in enumerate(zip(batches, answers)):
+            check(tuple(ids.shape) == (1, RETRIEVAL_K)
+                  and bool(torch.isfinite(vals).all()),
+                  f"request {r}: malformed answer")
+            plain_vals, plain_ids = step(params, batch)
+            check(torch.equal(ids, plain_ids),
+                  f"request {r}: ids differ from the plain path's")
+            check(torch.allclose(vals, plain_vals, rtol=1e-5, atol=1e-6),
+                  f"request {r}: scores differ from the plain path's")
+    check(distance_matrix.LAUNCHES == launches,
+          "the plain path launched the kernel")
+    share = np.mean([k / w for k, w in zip(kernel_ms, wall_ms)])
+    print(f"[recsys] {RETRIEVAL_REQUESTS} requests, wall ms "
+          + ", ".join(f"{w:.3f}" for w in wall_ms)
+          + f" (mean {np.mean(wall_ms):.3f}, p50 {np.median(wall_ms):.3f}); "
+          "distance_matrix kernel ms (CUDA events) "
+          + ", ".join(f"{k:.4f}" for k in kernel_ms)
+          + f" ({100 * share:.1f}% of a request on average); "
+          f"{launches} launches, one per request; every answer's ids equal "
+          "the plain path's, its scores within rtol 1e-5", flush=True)
+    return launches
 
 
 def make_data(n: int):
@@ -669,10 +1002,17 @@ def main() -> int:
         return out
 
     smi = phase_device()
+    timed("nvcc", phase_build_kernels)
     kernels = timed("kernel", phase_kernel)
     torch.cuda.empty_cache()
     kernels += timed("kernel_int8", phase_kernel_int8)
+    torch.cuda.empty_cache()
+    kernels.append(timed("kernel_matrix", phase_kernel_matrix))
+    kernels.append(timed("kernel_quantized", phase_kernel_quantized))
+    kernels.append(timed("kernel_segment", phase_kernel_segment))
     kernels = {k["name"]: k for k in kernels}
+    # the recsys retrieval path, its counts read just after its requests
+    kernels["distance_matrix"]["launches"] = timed("recsys", phase_recsys)
     torch.cuda.empty_cache()
 
     X, Q = timed("data", make_data, N)
@@ -711,6 +1051,12 @@ def main() -> int:
     counts = launch_counts()
     for name in ("gather_distance", "quantized_gather_distance"):
         kernels[name]["launches"] = counts[name]
+    print(f"[launches] distance_matrix: "
+          f"{kernels['distance_matrix']['launches']} in the recsys requests; "
+          f"quantized_distance_matrix "
+          f"{kernels['quantized_distance_matrix']['launches']} and "
+          f"csr_segment_sum {kernels['csr_segment_sum']['launches']} through "
+          f"their ops entries (their whole path)", flush=True)
     print(f"[launches] gather_distance_batch: {build_launches} in the build, "
           f"{kernels['gather_distance_batch']['launches'] - build_launches} "
           f"in the f32 sweep; quantized_gather_distance_batch: "

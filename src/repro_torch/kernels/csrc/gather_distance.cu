@@ -155,7 +155,3 @@ extern "C" int navix_gather_distance_batch_f32(const float* Q,
       return (int)cudaErrorInvalidValue;
   }
 }
-
-extern "C" const char* navix_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -217,7 +217,3 @@ extern "C" int navix_quantized_gather_distance_batch(
       return (int)cudaErrorInvalidValue;
   }
 }
-
-extern "C" const char* navix_quantized_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

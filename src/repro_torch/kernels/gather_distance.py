@@ -22,18 +22,10 @@ LAUNCHES = 0
 #: one-lane launches made by :func:`gather_distance` in this process
 ONE_LANE_LAUNCHES = 0
 
-_METRIC_CODE = {"l2": 0, "cos": 1, "dot": 2}
-_INT32_MAX = 2 ** 31 - 1
-
 
 def _kernel():
-    lib = _build.load("gather_distance")
-    fn = lib.navix_gather_distance_batch_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.navix_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.navix_cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.navix_cuda_error_string
+    return _build.bind("gather_distance", "navix_gather_distance_batch_f32",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
 
 
 def gather_distance_batch(Q: torch.Tensor, vectors: torch.Tensor,
@@ -64,15 +56,8 @@ def gather_distance(q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
 def _launch(Q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
             metric: str) -> tuple[torch.Tensor, bool]:
     """Check the inputs, launch the kernel; (out, whether it launched)."""
-    for name, t in (("Q", Q), ("vectors", vectors), ("ids", ids)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} lies on {t.device}; the CUDA kernel "
-                             f"takes CUDA tensors only")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not Q.device == vectors.device == ids.device:
-        raise ValueError(f"Q, vectors and ids lie on different devices "
-                         f"({Q.device}, {vectors.device}, {ids.device})")
+    _build.check_cuda_inputs("gather_distance_batch", Q=Q, vectors=vectors,
+                             ids=ids)
     if Q.dtype != torch.float32 or vectors.dtype != torch.float32:
         raise TypeError(f"Q and vectors must be float32, got {Q.dtype} and "
                         f"{vectors.dtype}")
@@ -86,19 +71,14 @@ def _launch(Q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
                          f"vectors{tuple(vectors.shape)}, ids{tuple(ids.shape)}")
     if n == 0 or d == 0:
         raise ValueError("vectors must hold at least one row of width > 0")
-    if max(bsz, k, n, d) > _INT32_MAX:
+    if max(bsz, k, n, d) > _build.INT32_MAX:
         raise ValueError("a dimension exceeds the kernel's int32 range")
-    if metric not in _METRIC_CODE:
+    if metric not in _build.METRIC_CODE:
         raise ValueError(f"unknown metric {metric!r}")
     out = torch.empty((bsz, k), dtype=torch.float32, device=Q.device)
     if bsz == 0 or k == 0:
         return out, False
-    fn, err_str = _kernel()
-    with torch.cuda.device(Q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(Q.data_ptr(), vectors.data_ptr(), ids.data_ptr(),
-                out.data_ptr(), bsz, k, n, d, _METRIC_CODE[metric], stream)
-    if rc != 0:
-        raise RuntimeError(f"gather_distance_batch kernel launch failed: "
-                           f"{err_str(rc).decode()} (cudaError {rc})")
+    _build.launch("gather_distance_batch", _kernel(), Q.device, Q.data_ptr(),
+                  vectors.data_ptr(), ids.data_ptr(), out.data_ptr(), bsz, k,
+                  n, d, _build.METRIC_CODE[metric])
     return out, True

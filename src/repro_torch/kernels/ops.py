@@ -13,9 +13,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import distance_matrix as matrix_kernel
 from repro_torch.kernels import gather_distance as f32_kernel
+from repro_torch.kernels import quantized as int8_matrix_kernel
 from repro_torch.kernels import quantized_gather_distance as int8_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import segment_sum as segment_kernel
 
 
 def _device(name: str, *tensors: torch.Tensor) -> str:
@@ -74,3 +77,38 @@ def quantized_gather_distance(q: torch.Tensor, codes: torch.Tensor,
         return int8_kernel.quantized_gather_distance(
             q.contiguous(), codes, scale, ids.contiguous(), metric)
     return ref.quantized_gather_distance(q, codes, scale, ids, metric)
+
+
+def distance_matrix(Q: torch.Tensor, X: torch.Tensor,
+                    metric: str = "l2") -> torch.Tensor:
+    """All-pairs distances dist(Q[b], X[n]). f32[b, n]; Q and X are taken
+    as f32."""
+    if _device("distance_matrix", Q, X) == "cuda":
+        return matrix_kernel.distance_matrix(
+            Q.to(torch.float32).contiguous(),
+            X.to(torch.float32).contiguous(), metric)
+    return ref.distance_matrix(Q, X, metric)
+
+
+def quantized_distance_matrix(Q: torch.Tensor, codes: torch.Tensor,
+                              scale: torch.Tensor,
+                              metric: str = "l2") -> torch.Tensor:
+    """Distances against int8 codes with per-row scales. f32[b, n]."""
+    if _device("quantized_distance_matrix", Q, codes, scale) == "cuda":
+        return int8_matrix_kernel.quantized_distance_matrix(
+            Q.to(torch.float32).contiguous(), codes.contiguous(),
+            scale.to(torch.float32).contiguous(), metric)
+    return ref.quantized_distance_matrix(Q, codes, scale, metric)
+
+
+def csr_segment_sum(messages: torch.Tensor, dst_sorted: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Sorted segment sum -> f32[n, d]. messages[E, d], dst_sorted[E]
+    ascending; -1 padding is allowed only where it sorts as if it were
+    +inf (callers put it at the end): it is mapped to ``PAD_SENTINEL``."""
+    if _device("csr_segment_sum", messages, dst_sorted) == "cuda":
+        dst = torch.where(dst_sorted < 0, segment_kernel.PAD_SENTINEL,
+                          dst_sorted).to(torch.int32)
+        return segment_kernel.csr_segment_sum(
+            messages.to(torch.float32).contiguous(), dst.contiguous(), n)
+    return ref.csr_segment_sum(messages, dst_sorted, n)

@@ -25,18 +25,11 @@ LAUNCHES = 0
 #: one-lane launches made by :func:`quantized_gather_distance` in this process
 ONE_LANE_LAUNCHES = 0
 
-_METRIC_CODE = {"l2": 0, "cos": 1, "dot": 2}
-_INT32_MAX = 2 ** 31 - 1
-
 
 def _kernel():
-    lib = _build.load("quantized_gather_distance")
-    fn = lib.navix_quantized_gather_distance_batch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.navix_quantized_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.navix_quantized_cuda_error_string.restype = ctypes.c_char_p
-    return fn, lib.navix_quantized_cuda_error_string
+    return _build.bind("quantized_gather_distance",
+                       "navix_quantized_gather_distance_batch",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
 
 
 def quantized_gather_distance_batch(Q: torch.Tensor, codes: torch.Tensor,
@@ -78,17 +71,8 @@ def _launch(Q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         raise TypeError(f"codes must be int8, got {codes.dtype}")
     if ids.dtype != torch.int32:
         raise TypeError(f"ids must be int32, got {ids.dtype}")
-    named = (("Q", Q), ("codes", codes), ("scale", scale), ("ids", ids))
-    for name, t in named:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} lies on {t.device}; the CUDA kernel "
-                             f"takes CUDA tensors only")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if len({t.device for _, t in named}) != 1:
-        raise ValueError(f"Q, codes, scale and ids lie on different devices "
-                         f"({Q.device}, {codes.device}, {scale.device}, "
-                         f"{ids.device})")
+    _build.check_cuda_inputs("quantized_gather_distance_batch", Q=Q,
+                             codes=codes, scale=scale, ids=ids)
     if Q.ndim != 2 or codes.ndim != 2 or scale.ndim != 1 or ids.ndim != 2:
         raise ValueError("expected Q[B, d], codes[n, d], scale[n], ids[B, K]")
     (bsz, d), (n, dc), (bi, k) = Q.shape, codes.shape, ids.shape
@@ -98,20 +82,15 @@ def _launch(Q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                          f"scale{tuple(scale.shape)}, ids{tuple(ids.shape)}")
     if n == 0 or d == 0:
         raise ValueError("codes must hold at least one row of width > 0")
-    if max(bsz, k, n, d) > _INT32_MAX:
+    if max(bsz, k, n, d) > _build.INT32_MAX:
         raise ValueError("a dimension exceeds the kernel's int32 range")
-    if metric not in _METRIC_CODE:
+    if metric not in _build.METRIC_CODE:
         raise ValueError(f"unknown metric {metric!r}")
     out = torch.empty((bsz, k), dtype=torch.float32, device=Q.device)
     if bsz == 0 or k == 0:
         return out, False
-    fn, err_str = _kernel()
-    with torch.cuda.device(Q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(Q.data_ptr(), codes.data_ptr(), scale.data_ptr(),
-                ids.data_ptr(), out.data_ptr(), bsz, k, n, d,
-                _METRIC_CODE[metric], stream)
-    if rc != 0:
-        raise RuntimeError(f"quantized_gather_distance_batch kernel launch "
-                           f"failed: {err_str(rc).decode()} (cudaError {rc})")
+    _build.launch("quantized_gather_distance_batch", _kernel(), Q.device,
+                  Q.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                  ids.data_ptr(), out.data_ptr(), bsz, k, n, d,
+                  _build.METRIC_CODE[metric])
     return out, True

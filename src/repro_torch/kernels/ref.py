@@ -67,3 +67,45 @@ def _dist_rows(Q: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
     else:
         raise ValueError(metric)
     return torch.where(ids >= 0, d, torch.inf)
+
+
+def distance_matrix(Q: torch.Tensor, X: torch.Tensor,
+                    metric: str) -> torch.Tensor:
+    """f32[b, n]: all-pairs distances (``repro/kernels/ref.py::
+    distance_matrix``): l2 ||q||^2 + ||x||^2 - 2 q.x, cos 1 - q.x, dot
+    -q.x, products in f32."""
+    Qf = Q.to(torch.float32)
+    Xf = X.to(torch.float32)
+    dots = Qf @ Xf.T
+    if metric == "l2":
+        return (torch.sum(Qf * Qf, -1)[:, None]
+                + torch.sum(Xf * Xf, -1)[None, :] - 2.0 * dots)
+    if metric == "cos":
+        return 1.0 - dots
+    if metric == "dot":
+        return -dots
+    raise ValueError(metric)
+
+
+def quantized_distance_matrix(Q: torch.Tensor, codes: torch.Tensor,
+                              scale: torch.Tensor,
+                              metric: str) -> torch.Tensor:
+    """f32[b, n]: distances to x = scale * codes, dequantized first and then
+    :func:`distance_matrix` (as the reference does)."""
+    X = codes.to(torch.float32) * scale[:, None].to(torch.float32)
+    return distance_matrix(Q, X, metric)
+
+
+def csr_segment_sum(messages: torch.Tensor, dst_sorted: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """f32[n, d]: out[v] = sum of messages whose destination is v.
+
+    Entries with a destination outside ``[0, n)`` (-1 padding, the
+    sentinel) are dropped: they are summed into a row n that is sliced
+    off, as the reference's ``segment_sum`` over n + 1 segments does.
+    """
+    safe = torch.where((dst_sorted >= 0) & (dst_sorted < n), dst_sorted, n)
+    out = torch.zeros((n + 1, messages.shape[1]), dtype=torch.float32,
+                      device=messages.device)
+    out.index_add_(0, safe.long(), messages.to(torch.float32))
+    return out[:n]

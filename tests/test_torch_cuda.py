@@ -16,8 +16,11 @@ from repro_torch.core.navix import NavixConfig, NavixIndex
 from repro_torch.core.quantize import QuantizedStore, quantize
 from repro_torch.core.search import SearchParams
 from repro_torch.data.synthetic import gaussian_mixture
-from repro_torch.kernels import (gather_distance, ops,
-                                 quantized_gather_distance, ref)
+from repro_torch.config.base import ShapeSpec, get_arch
+from repro_torch.kernels import (_build, distance_matrix, gather_distance, ops,
+                                 quantized, quantized_gather_distance, ref,
+                                 segment_sum)
+from repro_torch.models import api, recsys
 
 pytestmark = pytest.mark.cuda
 
@@ -180,3 +183,116 @@ def test_quantized_index_engines_agree_on_the_card(cuda):
     # the int8 path launched no f32 gather kernel
     assert (gather_distance.LAUNCHES + gather_distance.ONE_LANE_LAUNCHES
             == f32_before)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
+# b = 1 and 16 take the 16-row tile, 17 and 100 the 64-row one; n and d off
+# the tiles; d = 32 is the retrieval step's width
+@pytest.mark.parametrize("b,n,d", [(1, 5000, 32), (16, 1000, 61),
+                                   (17, 333, 960), (100, 4097, 33)])
+def test_distance_matrix_kernel_matches_plain_version(cuda, metric, b, n, d):
+    gen = torch.Generator(device=cuda).manual_seed(b + n + d)
+    Q = torch.randn((b, d), generator=gen, device=cuda)
+    X = torch.randn((n, d), generator=gen, device=cuda)
+    before = distance_matrix.LAUNCHES
+    got = ops.distance_matrix(Q, X, metric)
+    assert distance_matrix.LAUNCHES == before + 1
+    # the reference's tolerance for this kernel (another summation order)
+    torch.testing.assert_close(got, ref.distance_matrix(Q, X, metric),
+                               rtol=1e-4, atol=1e-4)
+    # each row sums in one order whatever the tile: a lone row gives the
+    # same bits
+    assert torch.equal(ops.distance_matrix(Q[-1:], X, metric), got[-1:])
+
+
+@pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
+@pytest.mark.parametrize("b,n,d", [(1, 3000, 960), (8, 1000, 61),
+                                   (70, 513, 128)])
+def test_quantized_distance_kernel_matches_plain_version(cuda, metric, b, n,
+                                                         d):
+    gen = torch.Generator(device=cuda).manual_seed(b + n + d)
+    Q = torch.randn((b, d), generator=gen, device=cuda)
+    codes = torch.randint(-127, 128, (n, d), generator=gen, device=cuda,
+                          dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device=cuda) * 0.02 + 1e-3
+    scale[::7] = 0.0                              # all-zero rows
+    before = quantized.LAUNCHES
+    got = ops.quantized_distance_matrix(Q, codes, scale, metric)
+    assert quantized.LAUNCHES == before + 1
+    # the reference's tolerance: the kernel scales last, the plain version
+    # dequantizes first
+    torch.testing.assert_close(
+        got, ref.quantized_distance_matrix(Q, codes, scale, metric),
+        rtol=1e-3, atol=1e-3)
+
+
+# per-node degrees of about 1 to 20, as in the GNN graphs (ogb_products
+# averages 25); long segments are held by the next test
+@pytest.mark.parametrize("e,d,n", [(5000, 128, 300), (4096, 61, 2000),
+                                   (1, 4, 3), (20000, 256, 1000)])
+def test_segment_sum_kernel_matches_plain_version(cuda, e, d, n):
+    gen = torch.Generator(device=cuda).manual_seed(e + d + n)
+    dst = torch.sort(torch.randint(0, n, (e,), generator=gen, device=cuda,
+                                   dtype=torch.int32)).values
+    dst[e - e // 10:] = -1                        # padding at the end
+    msgs = torch.randn((e, d), generator=gen, device=cuda)
+    before = segment_sum.LAUNCHES
+    got = ops.csr_segment_sum(msgs, dst, n)
+    assert segment_sum.LAUNCHES == before + 1
+    torch.testing.assert_close(got, ref.csr_segment_sum(msgs, dst, n),
+                               rtol=1e-5, atol=1e-5)
+    # sentinel padding gives the same sums, bit for bit
+    sent = torch.where(dst < 0, segment_sum.PAD_SENTINEL, dst)
+    assert torch.equal(ops.csr_segment_sum(msgs, sent, n), got)
+
+
+def test_segment_sum_kernel_on_long_segments(cuda):
+    """2000 edges a node: both f32 sums (the kernel's in edge order, the
+    plain version's by atomics) stray from the exact sum by about
+    sqrt(2000) roundings of values near 45, so each is held against a
+    float64 sum at atol 1e-3 rather than against the other at 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    e, d, n = 20000, 256, 10
+    dst = torch.sort(torch.randint(0, n, (e,), generator=gen, device=cuda,
+                                   dtype=torch.int32)).values
+    msgs = torch.randn((e, d), generator=gen, device=cuda)
+    exact = torch.zeros((n, d), dtype=torch.float64, device=cuda)
+    exact.index_add_(0, dst.long(), msgs.double())
+    got = ops.csr_segment_sum(msgs, dst, n)
+    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(ref.csr_segment_sum(msgs, dst, n).double(),
+                               exact, rtol=1e-5, atol=1e-3)
+
+
+def _to(tree, device):
+    """A parameter tree with every tensor moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def test_retrieval_step_on_the_card_matches_the_plain_path(cuda):
+    cfg = get_arch("bst").smoke_config
+    params = recsys.init_recsys(cfg, torch.Generator().manual_seed(0), "cpu")
+    shape = ShapeSpec("r", "recsys_retrieval",
+                      {"batch": 2, "n_candidates": 20000})
+    batch = api.make_batch(cfg, shape, torch.Generator().manual_seed(1), "cpu")
+    step = api.make_retrieval_step(cfg, k=100)
+    want_vals, want_ids = step(params, batch)
+    before = distance_matrix.LAUNCHES
+    vals, ids = step(_to(params, cuda),
+                     {k: v.to(cuda) for k, v in batch.items()})
+    assert distance_matrix.LAUNCHES == before + 1
+    assert torch.equal(ids.cpu(), want_ids)
+    torch.testing.assert_close(vals.cpu(), want_vals, rtol=1e-5, atol=1e-6)
+
+
+def test_launch_error_message_comes_from_the_card(cuda):
+    with pytest.raises(RuntimeError, match=r"csr_segment_sum kernel launch "
+                       r"failed: invalid argument \(cudaError 1\)"):
+        _build.check_launch("csr_segment_sum", 1)
+    X = torch.randn((10, 8), device=cuda)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        distance_matrix.distance_matrix(X[:2], X.T.contiguous().T, "dot")

@@ -13,8 +13,9 @@ from repro_torch.common.device import resolve_device
 from repro_torch.core.graph import FIELDS, graph_from_numpy
 from repro_torch.core.navix import NavixConfig, NavixIndex
 from repro_torch.core.quantize import quantize
-from repro_torch.kernels import (_build, gather_distance, ops,
-                                 quantized_gather_distance, ref)
+from repro_torch.kernels import (_build, distance_matrix, gather_distance,
+                                 ops, quantized, quantized_gather_distance,
+                                 ref, segment_sum)
 
 RNG = np.random.default_rng(0)
 
@@ -61,6 +62,54 @@ def test_cpu_store_runs_plain_version_and_launches_nothing(metric):
         Q, store.codes, store.scale, ids, metric))
     assert torch.equal(one, got[1])
     assert torch.equal(f32_one, ref.gather_distance(Q[1], X, ids[1], metric))
+
+
+def _matrix_inputs():
+    Q, X, _ = _inputs()
+    store = quantize(X)
+    dst = torch.from_numpy(np.sort(RNG.integers(0, 6, size=20)).astype(
+        np.int32))
+    dst[-3:] = -1                               # padding sorts last
+    return Q, X, store, X.clone(), dst
+
+
+@pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
+def test_cpu_matrix_entries_run_plain_versions_and_launch_nothing(metric):
+    Q, X, store, msgs, dst = _matrix_inputs()
+    counts = (distance_matrix.LAUNCHES, quantized.LAUNCHES,
+              segment_sum.LAUNCHES)
+    got = ops.distance_matrix(Q, X, metric)
+    got_q = ops.quantized_distance_matrix(Q, store.codes, store.scale, metric)
+    got_s = ops.csr_segment_sum(msgs, dst, 6)
+    assert counts == (distance_matrix.LAUNCHES, quantized.LAUNCHES,
+                      segment_sum.LAUNCHES)
+    assert torch.equal(got, ref.distance_matrix(Q, X, metric))
+    assert torch.equal(got_q, ref.quantized_distance_matrix(
+        Q, store.codes, store.scale, metric))
+    assert torch.equal(got_s, ref.csr_segment_sum(msgs, dst, 6))
+
+
+def test_matrix_entries_raise_on_mixed_devices():
+    Q, X, store, msgs, dst = _matrix_inputs()
+    with pytest.raises(ValueError, match="different devices"):
+        ops.distance_matrix(Q.to("meta"), X)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.quantized_distance_matrix(Q, store.codes,
+                                      store.scale.to("meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        ops.csr_segment_sum(msgs, dst.to("meta"), 6)
+    with pytest.raises(ValueError, match="no distance_matrix path"):
+        ops.distance_matrix(Q.to("meta"), X.to("meta"))
+
+
+def test_matrix_wrappers_refuse_cpu_tensors():
+    Q, X, store, msgs, dst = _matrix_inputs()
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        distance_matrix.distance_matrix(Q, X, "dot")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        quantized.quantized_distance_matrix(Q, store.codes, store.scale, "l2")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        segment_sum.csr_segment_sum(msgs, dst, 6)
 
 
 def test_mixed_devices_raise():
@@ -146,3 +195,24 @@ def test_loader_raises_clearly_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("gather_distance")
+
+
+def test_launch_errors_carry_the_cuda_message(monkeypatch):
+    _build.check_launch("distance_matrix", 0)
+
+    def error_string(code):
+        return b"invalid argument" if code == 1 else b"?"
+    lib = type("Lib", (), {"navix_cuda_error_string": error_string})
+    monkeypatch.setattr(_build, "load", lambda name: {"cuda_error": lib}[name])
+    with pytest.raises(RuntimeError, match=r"segment_sum kernel launch "
+                       r"failed: invalid argument \(cudaError 1\)"):
+        _build.check_launch("csr_segment_sum", 1)
+
+
+def test_input_check_names_the_tensor_off_the_card():
+    Q, X, ids = _inputs()
+    with pytest.raises(ValueError, match="ids lies on cpu; the CUDA kernel "
+                       "takes CUDA tensors only"):
+        _build.check_cuda_inputs("gather_distance_batch", ids=ids)
+    with pytest.raises(ValueError, match="X lies on meta"):
+        _build.check_cuda_inputs("distance_matrix", X=X.to("meta"))
