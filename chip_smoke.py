@@ -6,11 +6,13 @@
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 each, in parallel) and holds each against its plain PyTorch version (the
 f32 and the int8 gather distance, batched and as one-lane launches; the
-all-pairs f32 and int8 distances at a 1M-candidate retrieval, a serve
-batch and GIST width; the CSR segment sum on the ogb_products graph),
+all-pairs f32 distance on both its paths, streaming for b <= 16 and on
+the tensor cores above, at a 1M-candidate retrieval, b = 16, a serve
+batch and GIST width; the int8 all-pairs distance; the CSR segment sum on
+the ogb_products graph),
 answers 8 recsys retrieval requests of BST at full width (1M candidates
 out of a 5M-item table, through the all-pairs kernel, each answer held
-against the plain path), builds a GIST1M-shaped index
+against the plain path, one of them profiled), builds a GIST1M-shaped index
 on the card (n = 1,000,000 x d = 960, l2, the paper's index settings),
 answers filtered batched queries at the paper's selectivities through
 ``NavixIndex.search_many``, makes the index int8-resident with
@@ -72,18 +74,24 @@ PARITY_LANES = 32           # per sigma and per arm (f32, int8)
 PARITY_SIGMAS = (1.0, 0.1, 0.01)
 # kernel vs plain version: a different f32 summation order
 RTOL, ATOL = 1e-5, 1e-4
-# the card's memory rate and f32 rate outside the tensor cores (H100 SXM
-# data sheet) for the bounds
+# the card's memory rate, f32 rate outside the tensor cores and dense TF32
+# rate (H100 SXM data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+# TF32 products per product on the cheapest f32-accurate route: a 3xTF32
+# split of f32 values (kernel 5), 2 for int8 codes, which TF32 holds exactly
+# (kernel 6)
+TF32_PRODUCTS = {4: 3, 1: 2}
 # the reference's tolerances for the all-pairs kernels (tests/test_kernels.py)
 # and the segment sum's (summed in another order than index_add_'s atomics)
 MATRIX_TOL = 1e-4
 QUANT_TOL = 1e-3
 SEGMENT_TOL = 1e-5
-# kernel 5 at the retrieval step's shape, a serve_p99 batch and GIST width
-MATRIX_SHAPES = ((1, 1_000_000, 32), (512, 1_000_000, 32),
-                 (1024, 65_536, 960))
+# kernel 5 at the retrieval step's shape and b = 16 (its streaming path),
+# a serve_p99 batch and GIST width (its tensor-core path)
+MATRIX_SHAPES = ((1, 1_000_000, 32), (16, 1_000_000, 32),
+                 (512, 1_000_000, 32), (1024, 65_536, 960))
 # kernel 6: an int8 brute-force scan, and GIST width
 QUANT_SHAPES = ((8, 1_000_000, 960), (1024, 65_536, 960))
 # kernel 7: meshgraphnet's ogb_products graph (configs/meshgraphnet.py) at its
@@ -108,16 +116,20 @@ KERNELS = {
     "quantized_gather_distance_batch": (INT8_SOURCE, f"{TPU_KERNELS}:173"),
     "gather_distance": (F32_SOURCE, f"{TPU_KERNELS}:39"),
     "quantized_gather_distance": (INT8_SOURCE, f"{TPU_KERNELS}:91"),
-    "distance_matrix": (f"{CSRC}/distance_matrix.cu",
+    "distance_matrix": (f"{CSRC}/distance_matrix_stream.cu",
                         "src/repro/kernels/distance_matrix.py:59"),
+    "distance_matrix_wgmma": (f"{CSRC}/distance_matrix_wgmma.cu",
+                              "src/repro/kernels/distance_matrix.py:59"),
     "quantized_distance_matrix": (f"{CSRC}/quantized_distance.cu",
                                   "src/repro/kernels/quantized.py:61"),
     "csr_segment_sum": (f"{CSRC}/segment_sum.cu",
                         "src/repro/kernels/segment_sum.py:59"),
 }
-#: the sources ``_build`` compiles, one nvcc each: the five kernels' and the
-#: CUDA error message every wrapper raises with
-SOURCES = ("gather_distance", "quantized_gather_distance", "distance_matrix",
+#: the sources ``_build`` compiles, one nvcc each: the kernels' (the
+#: all-pairs f32 distance in its two paths) and the CUDA error message every
+#: wrapper raises with
+SOURCES = ("gather_distance", "quantized_gather_distance",
+           "distance_matrix_stream", "distance_matrix_wgmma",
            "quantized_distance", "segment_sum", "cuda_error")
 
 
@@ -156,7 +168,8 @@ def launch_counts() -> dict[str, int]:
                 quantized_gather_distance.LAUNCHES,
             "quantized_gather_distance":
                 quantized_gather_distance.ONE_LANE_LAUNCHES,
-            "distance_matrix": distance_matrix.LAUNCHES,
+            "distance_matrix": distance_matrix.PATH_LAUNCHES["stream"],
+            "distance_matrix_wgmma": distance_matrix.PATH_LAUNCHES["wgmma"],
             "quantized_distance_matrix": quantized.LAUNCHES,
             "csr_segment_sum": segment_sum.LAUNCHES}
 
@@ -166,6 +179,8 @@ def reset_counts() -> None:
     quantized_gather_distance.LAUNCHES = 0
     quantized_gather_distance.ONE_LANE_LAUNCHES = 0
     distance_matrix.LAUNCHES = quantized.LAUNCHES = segment_sum.LAUNCHES = 0
+    for path in distance_matrix.PATH_LAUNCHES:
+        distance_matrix.PATH_LAUNCHES[path] = 0
 
 
 def gather_bound_ms(Q: torch.Tensor, ids: torch.Tensor,
@@ -194,12 +209,26 @@ def kernel_entry(name: str, max_abs: float, timing: tuple,
             "library_ms": library_ms}
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          tf32_flops: float = 0.0) -> tuple[float, str]:
     """(least ms, what bounds it): the larger of the bytes over the memory
-    rate and the f32 operations over the f32 rate."""
+    rate and the operations over their rates (f32 operations at the f32
+    rate, TF32 tensor-core operations at the TF32 rate)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = (flops / F32_FLOPS_PER_S + tf32_flops / TF32_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ops(prof) -> list[tuple[str, float, int]]:
+    """(name, device ms, count) of each device op (kernel, copy, fill) that
+    a torch.profiler run saw. Only device events are read: a CPU op's own
+    device time repeats that of the kernels it launched."""
+    from torch.autograd import DeviceType
+
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
 
 
 def print_ptxas(name: str) -> None:
@@ -486,62 +515,115 @@ def _check_close(got: torch.Tensor, want: torch.Tensor, tol: float,
     return float(err.max())
 
 
-def _matrix_bound(b: int, n: int, d: int, code_bytes: int,
-                  metric: str) -> tuple[float, str]:
+def _matrix_bound(b: int, n: int, d: int, code_bytes: int, metric: str,
+                  f32_only: bool = False) -> tuple[float, str]:
     """Least time of one all-pairs call: Q, X (4 or 1 bytes a value, and a
-    4-byte scale a row for int8 codes) and D moved once; 2bnd flops, and
-    the norms' 2(b + n)d for l2."""
+    4-byte scale a row for int8 codes) and D moved once; the 2bnd flops of
+    the products as TF32 tensor-core operations on the cheapest f32-accurate
+    route (``TF32_PRODUCTS`` each), and the norms' 2(b + n)d f32 flops for
+    l2. ``f32_only``: every flop at the f32 rate outside the tensor cores
+    (the bound of the earlier, CUDA-core kernel)."""
     nbytes = 4 * b * d + code_bytes * n * d + 4 * b * n
     if code_bytes == 1:
         nbytes += 4 * n
-    flops = 2 * b * n * d + (2 * (b + n) * d if metric == "l2" else 0)
-    return bound(nbytes, flops)
+    products = 2 * b * n * d
+    norms = 2 * (b + n) * d if metric == "l2" else 0
+    if f32_only:
+        return bound(nbytes, products + norms)
+    return bound(nbytes, norms, TF32_PRODUCTS[code_bytes] * products)
 
 
 def _timing_line(name: str, rows: dict, library: str | None,
-                 axes: str = "(b, n, d)") -> str:
+                 axes: str = "(b, n, d)", old: dict | None = None) -> str:
+    """One line of kernel, plain and library times against the bound, per
+    shape; ``old``: per shape, the f32-only bound, shown beside."""
     parts = []
     for shape, (ms, plain_ms, (b_ms, by), lib_ms) in rows.items():
         lib = (f", {library} {lib_ms:.4f} ms ({100 * b_ms / lib_ms:.1f}%)"
                if lib_ms is not None else "")
+        was = ""
+        if old is not None:
+            o_ms, o_by = old[shape]
+            was = (f"; f32-only bound {o_ms:.4f} ms ({o_by}), "
+                   f"{100 * o_ms / ms:.1f}% of it")
         parts.append(f"{shape}: kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% "
                      f"of the bound), plain {plain_ms:.4f} ms "
                      f"({100 * b_ms / plain_ms:.1f}%){lib}, bound "
-                     f"{b_ms:.4f} ms ({by})")
+                     f"{b_ms:.4f} ms ({by}){was}")
     return f"[kernel] {name} {axes}: " + "; ".join(parts)
 
 
-def phase_kernel_matrix() -> dict:
-    """Kernel 5 against its plain version at every metric and shape, then
-    timed (dot, the retrieval's metric) beside ``torch.matmul(Q, X.T)``."""
+def phase_kernel_matrix() -> list[dict]:
+    """Kernel 5 on both paths against its plain version at every metric
+    and shape, each path's bitwise claim (a lone row equals its row in a
+    streaming batch; the last 64 rows alone equal the same rows of a
+    tensor-core batch), then timed (dot, the retrieval's metric) beside
+    ``torch.matmul(Q, X.T)``. The tensor-core path, which no user path
+    reaches yet, is driven once through its ops entry (its whole path) at
+    the serve batch's shape."""
+    for path in distance_matrix.PATH_LAUNCHES:
+        info = _build.build_info.get(f"distance_matrix_{path}", {})
+        regs = sorted({ln.split("Used")[1].split(",")[0].strip()
+                       for ln in info.get("log", "").splitlines()
+                       if "Used" in ln})
+        spills = sorted({ln.split(",")[1].strip()
+                         for ln in info.get("log", "").splitlines()
+                         if "spill stores" in ln})
+        print(f"[kernel] distance_matrix path {path} "
+              f"(csrc/distance_matrix_{path}.cu): ptxas {', '.join(regs)}; "
+              f"{', '.join(spills)}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(5)
-    max_abs, rows = 0.0, {}
+    max_abs = {"stream": 0.0, "wgmma": 0.0}
+    rows, old, paths, launches = {}, {}, {}, 0
     for b, n, d in MATRIX_SHAPES:
         Q = torch.randn((b, d), generator=gen, device="cuda")
         X = torch.randn((n, d), generator=gen, device="cuda")
+        path = distance_matrix.plan(Q, X)[0]
+        paths[(b, n, d)] = path
         for metric in ("l2", "cos", "dot"):
             got = distance_matrix.distance_matrix(Q, X, metric)
-            max_abs = max(max_abs, _check_close(
+            max_abs[path] = max(max_abs[path], _check_close(
                 got, ref.distance_matrix(Q, X, metric), MATRIX_TOL,
-                f"distance_matrix {metric} ({b}, {n}, {d})"))
-            del got
+                f"distance_matrix {metric} ({b}, {n}, {d}), {path} path"))
+            part = Q[-1:] if path == "stream" else Q[-64:]
+            alone = distance_matrix.distance_matrix(part, X, metric)
+            sync()
+            check(torch.equal(alone, got[-part.shape[0]:]),
+                  f"distance_matrix {metric} ({b}, {n}, {d}): the last "
+                  f"{part.shape[0]} rows alone differ from the batch's")
+            del got, alone
         rows[(b, n, d)] = (
             cuda_ms(lambda: distance_matrix.distance_matrix(Q, X, "dot"),
                     reps=20),
             cuda_ms(lambda: ref.distance_matrix(Q, X, "dot"), reps=10),
             _matrix_bound(b, n, d, 4, "dot"),
             cuda_ms(lambda: torch.matmul(Q, X.T), reps=20))
+        old[(b, n, d)] = _matrix_bound(b, n, d, 4, "dot", f32_only=True)
+        if (b, n, d) == MATRIX_SHAPES[2]:
+            reset_counts()                   # the wgmma path: its ops entry
+            ops.distance_matrix(Q, X, "dot")
+            sync()
+            launches = distance_matrix.PATH_LAUNCHES["wgmma"]
         del Q, X
         torch.cuda.empty_cache()
     print("[kernel] distance_matrix == plain version, l2/cos/dot, at "
-          + ", ".join(str(s) for s in MATRIX_SHAPES)
-          + f": max abs err {max_abs:.3e} (rtol = atol = {MATRIX_TOL})",
-          flush=True)
+          + ", ".join(f"{s} ({p})" for s, p in paths.items())
+          + f": max abs err stream {max_abs['stream']:.3e}, wgmma "
+          f"{max_abs['wgmma']:.3e} (rtol = atol = {MATRIX_TOL}); a lone row "
+          "equals its row of a streaming batch, the last 64 rows alone equal "
+          "the same rows of a tensor-core batch, bit for bit", flush=True)
     print(_timing_line("distance_matrix, dot", rows,
-                       "torch.matmul(Q, X.T) (TF32 off)"), flush=True)
-    ms, plain_ms, (b_ms, by), lib_ms = rows[MATRIX_SHAPES[0]]
-    return kernel_entry("distance_matrix", max_abs, (ms, plain_ms, b_ms), by,
-                        lib_ms)
+                       "torch.matmul(Q, X.T) (TF32 off)", old=old)
+          + "; bound: bytes at 3.35 TB/s or 3 TF32 products a product at "
+          "495 TFLOP/s", flush=True)
+    entries = []
+    for name, shape in (("distance_matrix", MATRIX_SHAPES[0]),
+                        ("distance_matrix_wgmma", MATRIX_SHAPES[2])):
+        ms, plain_ms, (b_ms, by), lib_ms = rows[shape]
+        entries.append(kernel_entry(name, max_abs[paths[shape]],
+                                    (ms, plain_ms, b_ms), by, lib_ms))
+    entries[1]["launches"] = launches
+    return entries
 
 
 def phase_kernel_quantized() -> dict:
@@ -549,7 +631,7 @@ def phase_kernel_quantized() -> dict:
     zero-scale rows), timed for l2, and driven once through its ops entry
     (its whole path) at the scan's shape."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    max_abs, rows, launches = 0.0, {}, 0
+    max_abs, rows, old, launches = 0.0, {}, {}, 0
     for b, n, d in QUANT_SHAPES:
         Q = torch.randn((b, d), generator=gen, device="cuda")
         codes = torch.randint(-127, 128, (n, d), generator=gen,
@@ -568,6 +650,7 @@ def phase_kernel_quantized() -> dict:
             cuda_ms(lambda: ref.quantized_distance_matrix(
                 Q, codes, scale, "l2"), reps=5),
             _matrix_bound(b, n, d, 1, "l2"), None)
+        old[(b, n, d)] = _matrix_bound(b, n, d, 1, "l2", f32_only=True)
         if (b, n, d) == QUANT_SHAPES[0]:
             reset_counts()                           # its path: the ops entry
             ops.quantized_distance_matrix(Q, codes, scale, "l2")
@@ -579,9 +662,11 @@ def phase_kernel_quantized() -> dict:
           + ", ".join(str(s) for s in QUANT_SHAPES)
           + f", every 1000th scale 0: max abs err {max_abs:.3e} (rtol = atol"
           f" = {QUANT_TOL})", flush=True)
-    print(_timing_line("quantized_distance, l2", rows, None)
-          + "; no single PyTorch call multiplies f32 rows by scaled int8 "
-          "rows (library: none)", flush=True)
+    print(_timing_line("quantized_distance, l2", rows, None, old=old)
+          + "; bound: bytes at 3.35 TB/s or 2 TF32 products a product at 495 "
+          "TFLOP/s (int8 codes are exact in TF32); no single PyTorch call "
+          "multiplies f32 rows by scaled int8 rows (library: none)",
+          flush=True)
     ms, plain_ms, (b_ms, by), _ = rows[QUANT_SHAPES[0]]
     entry = kernel_entry("quantized_distance_matrix", max_abs,
                          (ms, plain_ms, b_ms), by)
@@ -709,9 +794,11 @@ def phase_recsys() -> int:
                   f"a request called the kernel {len(events)} times")
             kernel_ms.append(events[0][0].elapsed_time(events[0][1]))
     launches = distance_matrix.LAUNCHES
-    check(launches == RETRIEVAL_REQUESTS,
+    check(launches == RETRIEVAL_REQUESTS
+          and distance_matrix.PATH_LAUNCHES["stream"] == launches,
           f"distance_matrix launched {launches} times in "
-          f"{RETRIEVAL_REQUESTS} requests")
+          f"{RETRIEVAL_REQUESTS} requests, "
+          f"{distance_matrix.PATH_LAUNCHES['stream']} on its streaming path")
     with mock.patch.object(distance_matrix, "distance_matrix",
                            ref.distance_matrix):
         for r, (batch, (vals, ids)) in enumerate(zip(batches, answers)):
@@ -734,7 +821,32 @@ def phase_recsys() -> int:
           + f" ({100 * share:.1f}% of a request on average); "
           f"{launches} launches, one per request; every answer's ids equal "
           "the plain path's, its scores within rtol 1e-5", flush=True)
+    _profile_request(step, params, batches[0])
     return launches
+
+
+def _profile_request(step, params, batch) -> None:
+    """One more retrieval request under torch.profiler: its device-busy
+    share and the device ops that take its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, batch)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops_ms = device_ops(prof)
+    busy_ms = sum(t for _, t, _ in ops_ms)
+    check(busy_ms > 0, "the profiler saw no device time in a request")
+    top = sorted(ops_ms, key=lambda o: -o[1])[:6]
+    kernel_ms = sum(t for k, t, _ in ops_ms if "distance_stream_kernel" in k)
+    print(f"[recsys] one request under torch.profiler: wall {wall_ms:.3f} "
+          f"ms, device busy {busy_ms:.4f} ms ({100 * busy_ms / wall_ms:.1f}% "
+          f"of wall), {sum(c for _, _, c in ops_ms)} device ops, the "
+          f"distance_matrix kernel {kernel_ms:.4f} ms of them; top: "
+          + "; ".join(f"{k[:60]} {t:.4f} ms x{c}" for k, t, c in top),
+          flush=True)
 
 
 def make_data(n: int):
@@ -909,11 +1021,12 @@ def phase_profile(idx, Q: np.ndarray, mask) -> None:
         idx.search_many(Q, k=K, efs=EFS, semimask=mask)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    kernel_ms = sum(e.self_device_time_total for e in events
-                    if "gather_distance_batch_kernel" in e.key) / 1e3
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    ops_ms = device_ops(prof)
+    device_ms = sum(t for _, t, _ in ops_ms)
+    kernel_ms = sum(t for k, t, _ in ops_ms
+                    if "gather_distance_batch_kernel" in k)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
     check(device_ms > 0, "the profiler saw no device time")
     print(f"[profile] sigma=0.1, one pass of B={len(Q)} under torch.profiler:"
           f" wall {wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
@@ -1007,7 +1120,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += timed("kernel_int8", phase_kernel_int8)
     torch.cuda.empty_cache()
-    kernels.append(timed("kernel_matrix", phase_kernel_matrix))
+    kernels += timed("kernel_matrix", phase_kernel_matrix)
     kernels.append(timed("kernel_quantized", phase_kernel_quantized))
     kernels.append(timed("kernel_segment", phase_kernel_segment))
     kernels = {k["name"]: k for k in kernels}
@@ -1052,8 +1165,10 @@ def main() -> int:
     for name in ("gather_distance", "quantized_gather_distance"):
         kernels[name]["launches"] = counts[name]
     print(f"[launches] distance_matrix: "
-          f"{kernels['distance_matrix']['launches']} in the recsys requests; "
-          f"quantized_distance_matrix "
+          f"{kernels['distance_matrix']['launches']} on its streaming path in "
+          f"the recsys requests, "
+          f"{kernels['distance_matrix_wgmma']['launches']} on its tensor-core "
+          f"path through its ops entry; quantized_distance_matrix "
           f"{kernels['quantized_distance_matrix']['launches']} and "
           f"csr_segment_sum {kernels['csr_segment_sum']['launches']} through "
           f"their ops entries (their whole path)", flush=True)

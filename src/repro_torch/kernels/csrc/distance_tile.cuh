@@ -1,5 +1,8 @@
-// The tiled all-pairs distance schedule shared by distance_matrix.cu (f32
-// rows) and quantized_distance.cu (int8 codes with a per-row scale).
+// The tiled all-pairs distance schedule of quantized_distance.cu (int8 codes
+// with a per-row scale). It served the f32 all-pairs distance too until that
+// kernel got its own two paths (distance_matrix_stream.cu for b <= 16,
+// distance_matrix_wgmma.cu on the tensor cores); its XT = float form is no
+// longer instantiated.
 //
 // One block per (BQ x 64) tile of the output D[b, n]; 16 x 16 threads, each
 // holding a TM x 4 register micro-tile of outputs at rows ty + 16 i and

@@ -186,23 +186,55 @@ def test_quantized_index_engines_agree_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
-# b = 1 and 16 take the 16-row tile, 17 and 100 the 64-row one; n and d off
-# the tiles; d = 32 is the retrieval step's width
-@pytest.mark.parametrize("b,n,d", [(1, 5000, 32), (16, 1000, 61),
-                                   (17, 333, 960), (100, 4097, 33)])
-def test_distance_matrix_kernel_matches_plain_version(cuda, metric, b, n, d):
+# b <= 16 streams X through CUDA cores, b > 16 runs on the tensor cores (the
+# 64-row warpgroup and 128-row tile edges at 64/65 and 128/129); d = 32 is
+# the retrieval step's width, 33 and 61 take 4-byte loads; n = 1000 is off
+# both paths' row tiles (256 and 128)
+@pytest.mark.parametrize("d", [8, 32, 33, 61, 960])
+@pytest.mark.parametrize("b", [1, 16, 17, 64, 65, 129])
+def test_distance_matrix_kernel_matches_plain_version(cuda, metric, b, d):
+    n = 1000
     gen = torch.Generator(device=cuda).manual_seed(b + n + d)
     Q = torch.randn((b, d), generator=gen, device=cuda)
     X = torch.randn((n, d), generator=gen, device=cuda)
-    before = distance_matrix.LAUNCHES
+    path = "stream" if b <= distance_matrix.STREAM_MAX_BATCH else "wgmma"
+    before = distance_matrix.LAUNCHES, distance_matrix.PATH_LAUNCHES[path]
     got = ops.distance_matrix(Q, X, metric)
-    assert distance_matrix.LAUNCHES == before + 1
-    # the reference's tolerance for this kernel (another summation order)
+    assert (distance_matrix.LAUNCHES, distance_matrix.PATH_LAUNCHES[path]) \
+        == (before[0] + 1, before[1] + 1)
+    # the reference's tolerance for this kernel (another summation order);
+    # the tensor-core path holds it through its 3xTF32 split, which plain
+    # TF32 products miss by about 3x at d = 32
     torch.testing.assert_close(got, ref.distance_matrix(Q, X, metric),
                                rtol=1e-4, atol=1e-4)
-    # each row sums in one order whatever the tile: a lone row gives the
-    # same bits
-    assert torch.equal(ops.distance_matrix(Q[-1:], X, metric), got[-1:])
+    # each path sums every output over d in one order whatever the batch:
+    # on the streaming path a lone row equals its row in the batch; on the
+    # tensor-core path the last 64 rows computed alone (another place in
+    # the tile) equal the same rows inside the larger batch. The two paths
+    # sum in different orders, so no bitwise claim crosses them.
+    if path == "stream":
+        assert torch.equal(ops.distance_matrix(Q[-1:], X, metric), got[-1:])
+    elif b > 64:
+        assert torch.equal(ops.distance_matrix(Q[-64:], X, metric),
+                           got[-64:])
+
+
+@pytest.mark.parametrize("b", [3, 100])
+def test_distance_matrix_kernel_on_unaligned_rows(cuda, b):
+    """Rows at a 4-byte offset (d % 4 == 0 but not 16-byte aligned) take
+    the 4-byte loads of either path and give the 16-byte loads' bits."""
+    d, n = 32, 777
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    buf = torch.randn(((b + n) * d + 1,), generator=gen, device=cuda)
+    Q = buf[1:1 + b * d].view(b, d)
+    X = buf[1 + b * d:].view(n, d)
+    assert distance_matrix.plan(Q, X)[1] is False
+    for metric in ("l2", "cos", "dot"):
+        got = ops.distance_matrix(Q, X, metric)
+        torch.testing.assert_close(got, ref.distance_matrix(Q, X, metric),
+                                   rtol=1e-4, atol=1e-4)
+        aligned = ops.distance_matrix(Q.clone(), X.clone(), metric)
+        assert torch.equal(got, aligned)
 
 
 @pytest.mark.parametrize("metric", ["l2", "cos", "dot"])

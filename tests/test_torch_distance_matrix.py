@@ -1,6 +1,7 @@
 """The port's all-pairs distance (``ops.distance_matrix`` on CPU tensors,
 the plain version the CUDA kernel is held against on the card) against
-the JAX package's Pallas kernel in interpret mode and its oracle.
+the JAX package's Pallas kernel in interpret mode and its oracle; and the
+CUDA wrapper's shape-to-path rule and range checks, which need no card.
 
 Tolerance rtol/atol 1e-4, the reference's own for this kernel
 (``tests/test_kernels.py``): a different f32 summation order.
@@ -28,10 +29,11 @@ def _case(b, n, d):
 
 
 def _port(Q, X, metric):
-    before = kernel.LAUNCHES
+    before = kernel.LAUNCHES, dict(kernel.PATH_LAUNCHES)
     got = ops.distance_matrix(torch.from_numpy(Q), torch.from_numpy(X),
                               metric)
-    assert kernel.LAUNCHES == before          # a CPU tensor launches nothing
+    # a CPU tensor launches nothing, on either path
+    assert (kernel.LAUNCHES, kernel.PATH_LAUNCHES) == before
     assert got.dtype == torch.float32
     assert got.shape == (Q.shape[0], X.shape[0])
     return got.numpy()
@@ -84,3 +86,70 @@ def test_unknown_metric_raises():
     Q, X = _case(2, 3, 4)
     with pytest.raises(ValueError):
         ref.distance_matrix(torch.from_numpy(Q), torch.from_numpy(X), "ip")
+
+
+@pytest.mark.parametrize("b,path", [(1, "stream"), (16, "stream"),
+                                    (17, "wgmma"), (512, "wgmma")])
+@pytest.mark.parametrize("d,vec", [(32, True), (960, True), (33, False),
+                                   (61, False)])
+def test_plan_picks_the_path_by_batch_and_the_loads_by_width(b, path, d, vec):
+    """b <= 16 streams, larger batches run on the tensor cores; rows whose
+    byte width is a multiple of 16 take 16-byte loads."""
+    Q, X = torch.zeros((b, d)), torch.zeros((5, d))
+    assert kernel.plan(Q, X) == (path, vec)
+    assert (b <= kernel.STREAM_MAX_BATCH) == (path == "stream")
+
+
+@pytest.mark.parametrize("q_off,x_off", [(1, 0), (0, 1), (2, 2)])
+def test_plan_takes_4_byte_loads_off_16_byte_alignment(q_off, x_off):
+    """d % 4 == 0 is not enough: a view that starts 4 or 8 bytes into its
+    storage takes the 4-byte loads."""
+    d = 32
+    Q = torch.zeros((3 * d + q_off,))[q_off:].view(3, d)
+    X = torch.zeros((7 * d + x_off,))[x_off:].view(7, d)
+    assert kernel.plan(Q, X) == ("stream", False)
+    assert kernel.plan(Q.clone(), X.clone()) == ("stream", True)
+
+
+def _wide(rows, d=4):
+    """A [rows, d] f32 view of one stored row: no memory for huge rows."""
+    return torch.zeros((1, d)).expand(rows, d)
+
+
+@pytest.mark.parametrize("Q,X,metric,error", [
+    (torch.zeros((2, 4), dtype=torch.float64), torch.zeros((3, 4)), "l2",
+     TypeError),                                      # Q's dtype
+    (torch.zeros((2, 4)), torch.zeros((3, 4), dtype=torch.float16), "l2",
+     TypeError),                                      # X's dtype
+    (torch.zeros((2, 4)), torch.zeros((3, 5)), "l2", ValueError),   # widths
+    (torch.zeros((4,)), torch.zeros((3, 4)), "l2", ValueError),     # 1-D Q
+    (torch.zeros((2, 0)), torch.zeros((3, 0)), "l2", ValueError),   # d = 0
+    (torch.zeros((2, 4)), torch.zeros((3, 4)), "ip", ValueError),   # metric
+    (_wide(2 ** 31), torch.zeros((3, 4)), "dot", ValueError),       # b
+    (torch.zeros((2, 4)), _wide(2 ** 31), "dot", ValueError),       # n
+])
+def test_range_checks_raise_without_a_card(Q, X, metric, error):
+    with pytest.raises(error):
+        kernel.check_matrix_shapes(Q, X, metric)
+
+
+def test_max_batch_is_the_kernels_and_kernel_6_keeps_its_own():
+    """b up to ``MAX_BATCH`` (a C int) passes this kernel's checks; the
+    int8 kernel's 16-row grid still stops at ``TILED_MAX_BATCH``."""
+    assert kernel.MAX_BATCH == 2 ** 31 - 1
+    kernel.check_matrix_shapes(_wide(kernel.MAX_BATCH), _wide(3), "dot")
+    big = _wide(kernel.TILED_MAX_BATCH + 1)
+    kernel.check_matrix_shapes(big, _wide(3), "dot")
+    kernel.check_pairs_shapes(_wide(kernel.TILED_MAX_BATCH), _wide(3), "dot")
+    with pytest.raises(ValueError, match="range"):
+        kernel.check_pairs_shapes(big, _wide(3), "dot")
+
+
+def test_wrapper_checks_the_device_before_the_shapes():
+    """On the CPU the wrapper refuses the tensors before it looks at them,
+    and counts no launch."""
+    before = kernel.LAUNCHES, dict(kernel.PATH_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kernel.distance_matrix(torch.zeros((2, 4), dtype=torch.float64),
+                               torch.zeros((3, 4)), "dot")
+    assert (kernel.LAUNCHES, kernel.PATH_LAUNCHES) == before
