@@ -5,11 +5,13 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 each, in parallel) and holds each against its plain PyTorch version (the
-f32 and the int8 gather distance, batched and as one-lane launches; the
-all-pairs f32 distance on both its paths, streaming for b <= 16 and on
-the tensor cores above, at a 1M-candidate retrieval, b = 16, a serve
-batch and GIST width; the int8 all-pairs distance; the CSR segment sum on
-the ogb_products graph),
+f32 and the int8 gather distance, batched on the tiled schedule and as
+one-lane launches on the spread one, the two schedules against each other
+bit for bit, and both timed on cold rows beside an empty kernel's launch
+floor; the all-pairs f32 distance on both its paths, streaming for b <= 16
+and on the tensor cores above, at a 1M-candidate retrieval, b = 16, a
+serve batch and GIST width; the int8 all-pairs distance; the CSR segment
+sum on the ogb_products graph),
 answers 8 recsys retrieval requests of BST at full width (1M candidates
 out of a 5M-item table, through the all-pairs kernel, each answer held
 against the plain path, one of them profiled), builds a GIST1M-shaped index
@@ -20,7 +22,9 @@ answers filtered batched queries at the paper's selectivities through
 ``search_quantized_many`` (int8 beam loop on the card, exact re-rank on
 the host), and checks the answers: each batched engine against the port's
 single-query search, bit for bit, and against the same search run on CPU
-copies through the plain versions. Each phase prints one line; a failed
+copies through the plain versions; the single-query searches are timed
+one by one and two of them profiled (``[single]``). Each phase prints one
+line or two; a failed
 phase raises, so the script exits non-zero and prints no ``ok`` line. The
 last three lines are the card's name and power limit, a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": ...}``.
@@ -31,6 +35,7 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import pathlib
@@ -56,6 +61,7 @@ from repro_torch.core.quantize import QuantizedStore, quantize  # noqa: E402
 from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
 from repro_torch.storage.columnar import ExactTier  # noqa: E402
 from repro_torch.config.base import get_arch  # noqa: E402
+from repro_torch.core import build as build_module  # noqa: E402
 from repro_torch.kernels import (_build, distance_matrix,  # noqa: E402
                                  gather_distance, ops, quantized,
                                  quantized_gather_distance, ref, segment_sum)
@@ -100,6 +106,23 @@ OGB_NODES, OGB_EDGES, OGB_D = 2_449_029, 61_859_140, 128
 RETRIEVAL_ARCH = "bst"
 RETRIEVAL_REQUESTS = 8
 RETRIEVAL_K = 100
+# one-lane launches: the single-query search's K (seeds, the upper descent's
+# M_U, the expansions' M_L), timed on both schedules
+ONE_LANE_KS = (1, PAPER_INDEX.m_u, 2 * PAPER_INDEX.m_u)
+# ... checked against lanes of a B = N_QUERIES batch at these K (72 = M_L +
+# the build's new-edge cap: a second, partial tile) and lanes (lane 0 of
+# the batch is fully retired)
+ONE_LANE_CHECK_KS = (*ONE_LANE_KS, 2 * PAPER_INDEX.m_u
+                     + PAPER_INDEX.build_params().new_edge_cap)
+ONE_LANE_LANES = (1, 517, N_QUERIES - 1)
+# batch sizes at which both schedules are timed at K = M_L (beside every
+# (B, K) of the main path)
+SCHEDULE_BATCHES = (1, 8, 32, 64, 128, 256, 1024)
+SCHEDULES = ("tiled", "spread")
+# timed launches per one-lane timing (cold: each on its own id list; L2-hot:
+# one id list throughout) and per timing of a batch (cold)
+ONE_LANE_REPS = 50
+TABLE_REPS = 20
 # device cycles of spin queued per timed call: covers the host's time to
 # launch one call (tens of microseconds) at the card's clock
 SPIN_CYCLES_PER_CALL = 400_000
@@ -160,6 +183,49 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_each(fn, inputs: list) -> float:
+    """:func:`cuda_ms` of ``fn(x)``, each call on its own input: the
+    warm-up on ``inputs[0]``, then one timed call on each of the rest."""
+    it = iter(inputs)
+    return cuda_ms(lambda: fn(next(it)), len(inputs) - 1)
+
+
+def in_turns(time_one, names=("tiled", "spread")) -> dict[str, float]:
+    """``time_one(name)`` for each name in turns (a, b, b, a), averaged
+    per name, so a drift of the card's clock hits both alike."""
+    out = {name: 0.0 for name in names}
+    for name in (*names, *reversed(names)):
+        out[name] += time_one(name) / 2
+    return out
+
+
+class ColdIds:
+    """Id lists for cold-row timing: consecutive stretches of random
+    permutations of the n rows, 20% of each list then set to -1 padding,
+    so no row comes back before all n rows have been handed out (3.84 GB
+    at n = 1M, d = 960: many times the 50 MB L2)."""
+
+    def __init__(self, gen: torch.Generator, n: int):
+        self.gen, self.n = gen, n
+        self.perm, self.pos = None, n
+
+    def take(self, bsz: int, k: int) -> torch.Tensor:
+        dev = self.gen.device
+        parts, m = [], bsz * k
+        while m > 0:
+            if self.pos == self.n:
+                self.perm = torch.randperm(self.n, generator=self.gen,
+                                           device=dev, dtype=torch.int32)
+                self.pos = 0
+            step = min(m, self.n - self.pos)
+            parts.append(self.perm[self.pos:self.pos + step])
+            self.pos += step
+            m -= step
+        ids = torch.cat(parts).view(bsz, k)
+        r = torch.rand((bsz, k), generator=self.gen, device=dev)
+        return torch.where(r < 0.2, -1, ids).contiguous()
+
+
 def launch_counts() -> dict[str, int]:
     """Each kernel wrapper's launch count, by kernel name."""
     return {"gather_distance_batch": gather_distance.LAUNCHES,
@@ -179,8 +245,9 @@ def reset_counts() -> None:
     quantized_gather_distance.LAUNCHES = 0
     quantized_gather_distance.ONE_LANE_LAUNCHES = 0
     distance_matrix.LAUNCHES = quantized.LAUNCHES = segment_sum.LAUNCHES = 0
-    for path in distance_matrix.PATH_LAUNCHES:
-        distance_matrix.PATH_LAUNCHES[path] = 0
+    for mod in (distance_matrix, gather_distance, quantized_gather_distance):
+        for path in mod.PATH_LAUNCHES:
+            mod.PATH_LAUNCHES[path] = 0
 
 
 def gather_bound_ms(Q: torch.Tensor, ids: torch.Tensor,
@@ -258,9 +325,9 @@ def _padded_ids(gen: torch.Generator, bsz: int, k: int, n: int,
                 retire: bool = True) -> torch.Tensor:
     """Random ids in [0, n) with 20% -1 padding and out-of-range ids (>= n);
     lane 0 fully retired unless ``retire`` is False."""
-    ids = torch.randint(0, n, (bsz, k), generator=gen, device="cuda",
+    ids = torch.randint(0, n, (bsz, k), generator=gen, device=gen.device,
                         dtype=torch.int32)
-    r = torch.rand((bsz, k), generator=gen, device="cuda")
+    r = torch.rand((bsz, k), generator=gen, device=gen.device)
     ids = torch.where(r < 0.2, -1, ids)
     ids = torch.where((r >= 0.2) & (r < 0.25), n + 7, ids)
     if retire:
@@ -303,30 +370,146 @@ def _compare(got: torch.Tensor, want: torch.Tensor,
             float((err / want[fin].abs().clamp(min=1e-30)).max()))
 
 
+def _both_schedules(launch, where: str) -> torch.Tensor:
+    """``launch(schedule)`` on the tiled and the spread schedule, which
+    must agree bit for bit; returns the output."""
+    tiled, spread = launch("tiled"), launch("spread")
+    sync()
+    check(torch.equal(tiled, spread),
+          f"the spread schedule != the tiled one, bit for bit ({where})")
+    return tiled
+
+
 def _check_kernel(vecs: torch.Tensor, qs: torch.Tensor, ids: torch.Tensor,
                   metric: str) -> tuple[float, float]:
-    """f32 kernel vs plain version on the same inputs. The plain version
-    runs in slices of lanes to bound its [b, K, d] gather."""
+    """f32 kernel (the schedule ``plan`` picks) vs plain version on the
+    same inputs, and the two schedules against each other, bit for bit.
+    The plain version runs in slices of lanes to bound its [b, K, d]
+    gather."""
+    where = (f"f32 {metric}, B={ids.shape[0]}, K={ids.shape[1]}, "
+             f"d={qs.shape[1]}")
     got = gather_distance.gather_distance_batch(qs, vecs, ids, metric)
+    check(torch.equal(got, _both_schedules(
+        lambda s: gather_distance._launch(qs, vecs, ids, metric, s)[0],
+        where)), f"the planned launch differs from its schedule ({where})")
     want = torch.cat([ref.gather_distance_batch(qs[i:i + 4096], vecs,
                                                 ids[i:i + 4096], metric)
                       for i in range(0, qs.shape[0], 4096)])
-    return _compare(got, want, f"f32 {metric}, B={ids.shape[0]}, "
-                               f"K={ids.shape[1]}, d={qs.shape[1]}")
+    return _compare(got, want, where)
 
 
-def _check_one_lane(vecs: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
-                    metric: str) -> float:
-    """The f32 one-lane entry: equal to the batched kernel's lane bit for
-    bit, and to the plain version within tolerance; max abs err."""
-    one = gather_distance.gather_distance(q, vecs, ids, metric)
-    lane = gather_distance.gather_distance_batch(q[None], vecs, ids[None],
-                                                 metric)[0]
-    sync()
-    check(torch.equal(one, lane), f"f32 one-lane launch != batched lane "
-                                  f"({metric}, K={ids.shape[0]})")
-    return _compare(one, ref.gather_distance(q, vecs, ids, metric),
-                    f"f32 one lane {metric}, K={ids.shape[0]}")[0]
+def _check_one_lane(one_lane, batched, plain, Q: torch.Tensor,
+                    ids: torch.Tensor, where: str) -> float:
+    """One-lane launches (the spread schedule) at lanes ``ONE_LANE_LANES``
+    of a B = N_QUERIES batch (the tiled schedule): equal to the batch's
+    lane bit for bit, and to the plain version within tolerance; max abs
+    err. ``one_lane(q, ids)``, ``batched(Q, ids)`` and ``plain(q, ids)``
+    are the entries under test."""
+    mods = (gather_distance, quantized_gather_distance)
+    before = [dict(m.PATH_LAUNCHES) for m in mods]
+    batch = batched(Q, ids)
+    err = 0.0
+    for i in ONE_LANE_LANES:
+        one = one_lane(Q[i], ids[i])
+        sync()
+        check(torch.equal(one, batch[i]),
+              f"one-lane launch != lane {i} of the batch ({where})")
+        err = max(err, _compare(one, plain(Q[i], ids[i]),
+                                f"one lane {i}, {where}")[0])
+    grew = {s: sum(m.PATH_LAUNCHES[s] - b[s] for m, b in zip(mods, before))
+            for s in SCHEDULES}
+    check(grew == {"tiled": 1, "spread": len(ONE_LANE_LANES)},
+          f"the batch and the one-lane launches ran on {grew} ({where})")
+    return err
+
+
+def _time_schedules(launch, plain, Q: torch.Tensor, n: int,
+                    row_bytes: int, gen: torch.Generator) -> tuple:
+    """Both schedules of one gather kernel, timed in turns on cold rows
+    (every launch on its own id list, see :class:`ColdIds`) and, for one
+    lane, also L2-hot (one id list for all launches).
+    ``launch(Q, ids, schedule)``, ``plain(Q, ids)``. Returns
+    (one_lane, table): one_lane[K] = {(schedule, "cold" | "hot"): ms,
+    "bound": ms, and at K = M_L "plain": ms (cold)}; table[B, K] =
+    {schedule: ms, "bound": ms}, cold, at K = M_L for each B of
+    ``SCHEDULE_BATCHES`` and at every (B, K) of the main path
+    (:func:`_kernel_shapes`). A bound is the mean over the cold id lists
+    its row was timed on."""
+    cold = ColdIds(gen, n)
+
+    def cold_ms(Qb, k, reps, call, used):
+        """``call(ids)`` timed on ``reps`` fresh id lists, kept in
+        ``used``."""
+        lists = [cold.take(Qb.shape[0], k) for _ in range(reps + 1)]
+        used += lists
+        return cuda_ms_each(call, lists)
+
+    def mean_bound(Qb, used):
+        return float(np.mean([gather_bound_ms(Qb, ids, row_bytes)
+                              for ids in used]))
+
+    q = Q[:1]
+    one_lane = {}
+    for k in ONE_LANE_KS:
+        used = []
+        row = {(s, "cold"): ms for s, ms in in_turns(lambda s: cold_ms(
+            q, k, ONE_LANE_REPS, lambda ids: launch(q, ids, s), used)).items()}
+        hot = _padded_ids(gen, 1, k, n, retire=False)
+        row.update({(s, "hot"): ms for s, ms in in_turns(lambda s: cuda_ms(
+            lambda: launch(q, hot, s), ONE_LANE_REPS)).items()})
+        row["bound"] = mean_bound(q, used)
+        if k == ONE_LANE_KS[-1]:
+            row["plain"] = cold_ms(q, k, 10, lambda ids: plain(q, ids), [])
+        one_lane[k] = row
+    shapes = sorted({(b, ONE_LANE_KS[-1]) for b in SCHEDULE_BATCHES}
+                    | set(_kernel_shapes()))
+    Qm = torch.randn((max(b for b, _ in shapes), Q.shape[1]), generator=gen,
+                     device=gen.device)
+    table = {}
+    for bsz, k in shapes:
+        Qb, used = Qm[:bsz], []
+        table[bsz, k] = in_turns(lambda s: cold_ms(
+            Qb, k, TABLE_REPS, lambda ids: launch(Qb, ids, s), used))
+        table[bsz, k]["bound"] = mean_bound(Qb, used)
+    return one_lane, table
+
+
+def _schedule_lines(name: str, one_lane: dict, table: dict) -> str:
+    """The ``[kernel]`` lines of :func:`_time_schedules`' numbers."""
+    parts = []
+    for k, r in one_lane.items():
+        parts.append(
+            f"K={k}: cold tiled {r['tiled', 'cold']:.4f}, spread "
+            f"{r['spread', 'cold']:.4f} ({r['tiled', 'cold'] / r['spread', 'cold']:.2f}x); "
+            f"L2-hot tiled {r['tiled', 'hot']:.4f}, spread "
+            f"{r['spread', 'hot']:.4f}; bound {r['bound']:.6f} (bytes)"
+            + (f"; plain (cold) {r['plain']:.4f}" if "plain" in r else ""))
+    rows = [f"({b}, {k}): tiled {r['tiled']:.4f}, spread "
+            f"{r['spread']:.4f} ({r['tiled'] / r['spread']:.2f}x), bound "
+            f"{r['bound']:.4f}" for (b, k), r in table.items()]
+    return (f"[kernel] {name} one lane (B=1, d={DIM}, l2, 20% ids -1), ms "
+            f"per launch: " + "; ".join(parts)
+            + f"\n[kernel] {name} schedules at (B, K), d={DIM}, cold rows, "
+            f"ms per launch: " + "; ".join(rows))
+
+
+def phase_launch_floor() -> dict[str, float]:
+    """Per-launch device time of an empty kernel, launched as the kernels
+    are (ctypes, the current stream, queued behind the spin kernel) on a
+    one-lane launch's grid of each schedule at K = M_L: the floor beside
+    a one-lane launch's bytes bound, which says nothing there."""
+    fn = _build.bind("cuda_error", "navix_empty_kernel", [ctypes.c_int] * 3)
+    dev = torch.device("cuda")
+    k = ONE_LANE_KS[-1]
+    grids = {"tiled": ((1, -(-k // _build.TILE_K)), 256),
+             "spread": ((1, -(-k // 4)), 128)}
+    floor = in_turns(lambda s: cuda_ms(
+        lambda: _build.launch("empty_kernel", fn, dev, *grids[s][0],
+                              grids[s][1]), reps=200))
+    print("[kernel] launch floor (an empty kernel, ms per launch): "
+          + ", ".join(f"{s} grid {grids[s][0]} x {grids[s][1]} threads "
+                      f"{ms:.4f}" for s, ms in floor.items()), flush=True)
+    return floor
 
 
 def phase_kernel() -> list[dict]:
@@ -339,6 +522,11 @@ def phase_kernel() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     vectors = torch.randn((N, DIM), generator=gen, device="cuda")
     shapes = _kernel_shapes()
+    sms = _build.sm_count(vectors.device)
+    check(all(gather_distance.plan(b, k, DIM, sms)[0] == "tiled"
+              for b, k in shapes),
+          "a launch of the main path's batched search or full morsels is "
+          "not planned on the tiled schedule")
     max_abs = max_rel = 0.0
     for bsz, k in shapes:
         qs = torch.randn((bsz, DIM), generator=gen, device="cuda")
@@ -355,19 +543,29 @@ def phase_kernel() -> list[dict]:
         for metric in ("l2", "cos", "dot"):
             a, r = _check_kernel(v_odd, q_odd, ids, metric)
             max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-    # one-lane launches: the single-query oracle's K = 1, M_U, M_L
+    # one-lane launches (the single-query search's) against lanes of a
+    # tiled batch
     one_abs = 0.0
-    for k in (1, PAPER_INDEX.m_u, 2 * PAPER_INDEX.m_u):
+    for k in ONE_LANE_CHECK_KS:
         for vecs, d in ((vectors, DIM), (v_odd, 33)):
-            q = torch.randn((d,), generator=gen, device="cuda")
-            ids = _padded_ids(gen, 1, k, vecs.shape[0], retire=False)[0]
+            Q1 = torch.randn((N_QUERIES, d), generator=gen, device="cuda")
+            ids = _padded_ids(gen, N_QUERIES, k, vecs.shape[0])
             for metric in ("l2", "cos", "dot"):
-                one_abs = max(one_abs, _check_one_lane(vecs, q, ids, metric))
+                one_abs = max(one_abs, _check_one_lane(
+                    lambda q, i: gather_distance.gather_distance(
+                        q, vecs, i, metric),
+                    lambda Q, i: gather_distance.gather_distance_batch(
+                        Q, vecs, i, metric),
+                    lambda q, i: ref.gather_distance(q, vecs, i, metric),
+                    Q1, ids, f"f32 {metric}, K={k}, d={d}"))
     print(f"[kernel] f32: kernel == plain version at every (B, K) of the "
-          f"main path, d={DIM}, l2/cos/dot: "
+          f"main path (all planned tiled), d={DIM}, l2/cos/dot: "
           + ", ".join(f"({b}, {k})" for b, k in shapes)
-          + "; and d=33 at K=64, 72; one-lane launches at K=1, 32, 64 equal "
-          "the batched lane bit for bit", flush=True)
+          + "; and d=33 at (64, 64), (64, 72); the spread schedule equals "
+          "the tiled one bit for bit at each; one-lane launches (spread) at "
+          f"K={', '.join(map(str, ONE_LANE_CHECK_KS))}, d={DIM} and 33, "
+          f"equal lanes {ONE_LANE_LANES} of a B={N_QUERIES} batch (tiled) "
+          "bit for bit", flush=True)
 
     Q = torch.randn((N_QUERIES, DIM), generator=gen, device="cuda")
     timings = {}
@@ -379,44 +577,25 @@ def phase_kernel() -> list[dict]:
             cuda_ms(lambda: ref.gather_distance_batch(
                 Q, vectors, ids, "l2"), reps=10),
             gather_bound_ms(Q, ids, 4 * DIM))
-    ids = _padded_ids(gen, 1, 64, N, retire=False)
-    q = Q[0].contiguous()
-    one = (cuda_ms(lambda: gather_distance.gather_distance(
-               q, vectors, ids[0], "l2"), reps=50),
-           cuda_ms(lambda: ref.gather_distance(q, vectors, ids[0], "l2"),
-                   reps=10),
-           gather_bound_ms(q[None], ids, 4 * DIM))
+    one_lane, table = _time_schedules(
+        lambda Qb, ids, s: gather_distance._launch(Qb, vectors, ids, "l2",
+                                                   s)[0],
+        lambda Qb, ids: ref.gather_distance_batch(Qb, vectors, ids, "l2"),
+        Q, N, 4 * DIM, gen)
     shown = "; ".join(
         f"K={k}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound "
         f"{t[2]:.4f} ms (bytes)" for k, t in timings.items())
     print(f"[kernel] gather_distance_batch built in {build_s:.3f}s "
           f"(nvcc {info.get('seconds', 0.0):.3f}s); max abs err {max_abs:.3e}"
           f", max rel err {max_rel:.3e} (rtol {RTOL}, atol {ATOL}); B="
-          f"{N_QUERIES} d={DIM} l2, 20% ids -1: {shown}; one lane (B=1, "
-          f"K=64): kernel {one[0]:.4f} ms, plain {one[1]:.4f} ms, bound "
-          f"{one[2]:.6f} ms, max abs err {one_abs:.3e}", flush=True)
+          f"{N_QUERIES} d={DIM} l2, 20% ids -1: {shown}; one lane: max abs "
+          f"err {one_abs:.3e}", flush=True)
+    print(_schedule_lines("gather_distance", one_lane, table), flush=True)
+    m_l = one_lane[ONE_LANE_KS[-1]]
     return [kernel_entry("gather_distance_batch", max_abs, timings[64]),
-            kernel_entry("gather_distance", one_abs, one)]
-
-
-def _check_int8(store: QuantizedStore, qs: torch.Tensor, ids: torch.Tensor,
-                metric: str) -> float:
-    """int8 kernel vs plain version; for one lane also the one-lane entry,
-    which must equal the batched lane bit for bit. Max abs err."""
-    codes, scale = store.codes, store.scale
-    got = quantized_gather_distance.quantized_gather_distance_batch(
-        qs, codes, scale, ids, metric)
-    where = (f"int8 {metric}, B={ids.shape[0]}, K={ids.shape[1]}, "
-             f"d={qs.shape[1]}")
-    err = _compare(got, ref.quantized_gather_distance_batch(
-        qs, codes, scale, ids, metric), where)[0]
-    if qs.shape[0] == 1:
-        one = quantized_gather_distance.quantized_gather_distance(
-            qs[0], codes, scale, ids[0], metric)
-        sync()
-        check(torch.equal(one, got[0]),
-              f"one-lane launch != batched lane ({where})")
-    return err
+            kernel_entry("gather_distance", one_abs,
+                         (m_l["spread", "cold"], m_l["plain"],
+                          m_l["bound"]))]
 
 
 def phase_kernel_int8() -> list[dict]:
@@ -434,22 +613,40 @@ def phase_kernel_int8() -> list[dict]:
         stores[d] = quantize(X)
         del X
         check(float(stores[d].scale[3]) == 1.0, "all-zero row: scale != 1")
-    shapes = [(bsz, k) for bsz in (N_QUERIES, 1)
-              for k in (1, PAPER_INDEX.m_u, 2 * PAPER_INDEX.m_u)]
-    max_abs = {N_QUERIES: 0.0, 1: 0.0}
+    max_abs = {"batch": 0.0, "one": 0.0}
     for d, store in stores.items():
-        for bsz, k in shapes:
-            qs = torch.randn((bsz, d), generator=gen, device="cuda")
-            ids = _padded_ids(gen, bsz, k, store.n, retire=bsz > 1)
+        c, sc = store.codes, store.scale
+        for k in ONE_LANE_CHECK_KS:
+            qs = torch.randn((N_QUERIES, d), generator=gen, device="cuda")
+            ids = _padded_ids(gen, N_QUERIES, k, store.n)
             ids[-1, 0] = 3                           # the all-zero row
             for metric in ("l2", "cos", "dot"):
-                max_abs[bsz] = max(max_abs[bsz],
-                                   _check_int8(store, qs, ids, metric))
+                where = f"int8 {metric}, B={N_QUERIES}, K={k}, d={d}"
+                got = quantized_gather_distance.quantized_gather_distance_batch(
+                    qs, c, sc, ids, metric)
+                check(torch.equal(got, _both_schedules(
+                    lambda s: quantized_gather_distance._launch(
+                        qs, c, sc, ids, metric, s)[0], where)),
+                      f"the planned launch differs from its schedule "
+                      f"({where})")
+                max_abs["batch"] = max(max_abs["batch"], _compare(
+                    got, ref.quantized_gather_distance_batch(
+                        qs, c, sc, ids, metric), where)[0])
+                max_abs["one"] = max(max_abs["one"], _check_one_lane(
+                    lambda q, i: quantized_gather_distance
+                    .quantized_gather_distance(q, c, sc, i, metric),
+                    lambda Q, i: quantized_gather_distance
+                    .quantized_gather_distance_batch(Q, c, sc, i, metric),
+                    lambda q, i: ref.quantized_gather_distance(q, c, sc, i,
+                                                               metric),
+                    qs, ids, where))
     print(f"[kernel] int8: kernel == plain version at (B, K) = "
-          + ", ".join(f"({b}, {k})" for b, k in shapes)
-          + f", d={DIM} and d=33, l2/cos/dot, codes from quantize() with an "
-          "all-zero row, 20% ids -1, ids >= n, a fully retired lane; "
-          "one-lane launches equal the batched lane bit for bit", flush=True)
+          + ", ".join(f"({N_QUERIES}, {k})" for k in ONE_LANE_CHECK_KS)
+          + f" (tiled), d={DIM} and d=33, l2/cos/dot, codes from quantize() "
+          "with an all-zero row, 20% ids -1, ids >= n, a fully retired lane;"
+          " the spread schedule equals the tiled one bit for bit; one-lane "
+          f"launches (spread) equal lanes {ONE_LANE_LANES} of the batch bit "
+          "for bit", flush=True)
 
     store = stores[DIM]
     Q = torch.randn((N_QUERIES, DIM), generator=gen, device="cuda")
@@ -464,26 +661,29 @@ def phase_kernel_int8() -> list[dict]:
             cuda_ms(lambda: ref.quantized_gather_distance_batch(
                 Q, c, sc, ids, "l2"), reps=10),
             gather_bound_ms(Q, ids, DIM + SECTOR_BYTES))
-    ids = _padded_ids(gen, 1, 64, N, retire=False)
-    q = Q[0].contiguous()
-    one = (cuda_ms(lambda: quantized_gather_distance.quantized_gather_distance(
-               q, c, sc, ids[0], "l2"), reps=50),
-           cuda_ms(lambda: ref.quantized_gather_distance(q, c, sc, ids[0],
-                                                         "l2"), reps=10),
-           gather_bound_ms(q[None], ids, DIM + SECTOR_BYTES))
+    one_lane, table = _time_schedules(
+        lambda Qb, ids, s: quantized_gather_distance._launch(
+            Qb, c, sc, ids, "l2", s)[0],
+        lambda Qb, ids: ref.quantized_gather_distance_batch(Qb, c, sc, ids,
+                                                            "l2"),
+        Q, N, DIM + SECTOR_BYTES, gen)
     shown = "; ".join(
         f"K={k}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound "
         f"{t[2]:.4f} ms (bytes, {100 * t[2] / t[0]:.1f}% of it reached)"
         for k, t in timings.items())
     print(f"[kernel] quantized_gather_distance_batch built in {build_s:.3f}s "
           f"(nvcc {info.get('seconds', 0.0):.3f}s); max abs err "
-          f"{max_abs[N_QUERIES]:.3e} (rtol {RTOL}, atol {ATOL}); B="
-          f"{N_QUERIES} d={DIM} l2, 20% ids -1: {shown}; one lane (B=1, "
-          f"K=64): kernel {one[0]:.4f} ms, plain {one[1]:.4f} ms, bound "
-          f"{one[2]:.6f} ms, max abs err {max_abs[1]:.3e}", flush=True)
+          f"{max_abs['batch']:.3e} (rtol {RTOL}, atol {ATOL}); B="
+          f"{N_QUERIES} d={DIM} l2, 20% ids -1: {shown}; one lane: max abs "
+          f"err {max_abs['one']:.3e}", flush=True)
+    print(_schedule_lines("quantized_gather_distance", one_lane, table),
+          flush=True)
+    m_l = one_lane[ONE_LANE_KS[-1]]
     return [kernel_entry("quantized_gather_distance_batch",
-                         max_abs[N_QUERIES], timings[64]),
-            kernel_entry("quantized_gather_distance", max_abs[1], one)]
+                         max_abs["batch"], timings[64]),
+            kernel_entry("quantized_gather_distance", max_abs["one"],
+                         (m_l["spread", "cold"], m_l["plain"],
+                          m_l["bound"]))]
 
 
 def phase_build_kernels() -> None:
@@ -858,10 +1058,39 @@ def make_data(n: int):
 
 
 def phase_build(X: np.ndarray):
+    """The build on the card (launch counts set to 0 just before). Each
+    morsel's insert notes its nodes and the f32 kernel's spread launches
+    since the last morsel's (its upper descent, then its insert): the
+    spread schedule may run only in morsels below a level's full size (its
+    doubling warm-up and a short last one)."""
     cfg = PAPER_INDEX._replace(batch_size=BUILD_MORSEL)
+    morsels: dict[int, list] = {}   # level (its rows) -> [(nodes, spread)]
+    insert = build_module._insert_batch
+    noted = 0                       # spread launches up to the last morsel
+
+    def noted_insert(adj, deg, vectors, batch_ids, *args, **kwargs):
+        nonlocal noted
+        out = insert(adj, deg, vectors, batch_ids, *args, **kwargs)
+        now = gather_distance.PATH_LAUNCHES["spread"]
+        morsels.setdefault(adj.shape[0], []).append(
+            (batch_ids.shape[0], now - noted))
+        noted = now
+        return out
+
     torch.cuda.reset_peak_memory_stats()
-    idx, stats = NavixIndex.create(X, cfg)            # on the card
+    with mock.patch.object(build_module, "_insert_batch", noted_insert):
+        idx, stats = NavixIndex.create(X, cfg)        # on the card
     peak = torch.cuda.max_memory_allocated()
+    spread = [(b, n) for ms in morsels.values() for b, n in ms if n]
+    full = {}                       # a level's full size -> its spread
+    for ms in morsels.values():
+        size = max(b for b, _ in ms)
+        full[size] = sum(n for b, n in ms if b == size)
+    check(not any(full.values()),
+          f"full morsels ran spread ({full}: nodes -> spread launches)")
+    check(sum(n for _, n in spread)
+          == gather_distance.PATH_LAUNCHES["spread"],
+          "the build launched spread after its last morsel")
     g = idx.graph
     check(g.device.type == "cuda", "index was not built on the card")
     mean_deg = float(g.lower_deg.float().mean())
@@ -876,6 +1105,12 @@ def phase_build(X: np.ndarray):
           f"search_dc={stats.search_dc}, peak device memory "
           f"{peak / 2**30:.3f} GiB (index {g.nbytes() / 2**30:.3f} GiB)",
           flush=True)
+    print(f"[build] schedules: tiled {gather_distance.PATH_LAUNCHES['tiled']}"
+          f" launches, spread {sum(n for _, n in spread)} in {len(spread)} "
+          f"morsels below their level's full size (nodes: "
+          + ", ".join(str(b) for b, _ in spread)
+          + f"); full morsels ({', '.join(map(str, full))} nodes by level) "
+          "all tiled", flush=True)
     return idx
 
 
@@ -962,11 +1197,13 @@ class _TimedTier(ExactTier):
         return out
 
 
-def phase_search_int8(qidx, Q: np.ndarray, masks, f32) -> None:
+def phase_search_int8(qidx, Q: np.ndarray, masks, f32) -> dict:
     """The int8 sweep through ``search_quantized_many``: a warm-up pass,
     then a timed pass whose beam loop (on the card, up to the ids' copy
-    to the host) and host re-rank are timed apart."""
+    to the host) and host re-rank are timed apart. Returns {sigma:
+    result}."""
     f32_store = N * DIM * 4
+    results = {}
     tier = _TimedTier(vectors=qidx.exact.vectors, metric=qidx.exact.metric)
     timed_idx = dataclasses.replace(qidx, exact=tier)
     for sigma, mask in masks.items():
@@ -998,6 +1235,7 @@ def phase_search_int8(qidx, Q: np.ndarray, masks, f32) -> None:
         _, true_ids, rec_f32 = f32[sigma]
         rec = qidx.recall(res.ids, true_ids)
         st = res.stats
+        results[sigma] = res
         print(f"[int8] sigma={sigma}: QPS {len(Q) / dt:.1f} ({dt:.3f}s for "
               f"B={len(Q)}): beam loop {beam_s:.3f}s (QPS "
               f"{len(Q) / beam_s:.1f}), host re-rank {rerank_s:.3f}s "
@@ -1009,6 +1247,14 @@ def phase_search_int8(qidx, Q: np.ndarray, masks, f32) -> None:
               f"{launched['quantized_gather_distance_batch']}, f32 0; pass "
               f"working set {work / 2**30:.3f} GiB (an f32 store is "
               f"{f32_store / 2**30:.3f} GiB)", flush=True)
+    return results
+
+
+def _gather_kernel_ms(ops_ms, int8: bool) -> float:
+    """Device ms of the f32 (or the int8) gather-distance kernel, both
+    schedules, among :func:`device_ops`' entries."""
+    return sum(t for k, t, _ in ops_ms if "gather_distance_" in k
+               and ("quantized" in k) == int8)
 
 
 def phase_profile(idx, Q: np.ndarray, mask) -> None:
@@ -1023,8 +1269,7 @@ def phase_profile(idx, Q: np.ndarray, mask) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     ops_ms = device_ops(prof)
     device_ms = sum(t for _, t, _ in ops_ms)
-    kernel_ms = sum(t for k, t, _ in ops_ms
-                    if "gather_distance_batch_kernel" in k)
+    kernel_ms = _gather_kernel_ms(ops_ms, int8=False)
     launches = sum(e.count for e in prof.key_averages()
                    if e.key == "cudaLaunchKernel")
     check(device_ms > 0, "the profiler saw no device time")
@@ -1045,20 +1290,48 @@ def _same_result(one, many, i: int) -> bool:
                     for f in one.stats._fields))
 
 
-def _parity_arm(name: str, search_one, search_many, cpu_many, Q, masks
-                ) -> tuple[int, int]:
-    """Batched == single-query on the card, bit for bit, and the card
-    against the plain path on CPU copies; (identical lanes, lanes)."""
-    identical = total = 0
+def _parity_arm(name: str, kernel, search_one, search_many, cpu_many, Q,
+                masks, sweep: dict) -> dict:
+    """Batched == single-query on the card, bit for bit: against the
+    parity batch and, at each sigma the sweep ran, against the same lane
+    of the sweep's B = N_QUERIES batch (whose launches were tiled); then
+    the card against the plain path on CPU copies. ``kernel`` is the
+    gather kernel's wrapper module: every one-lane launch of the
+    single-query searches must run on the spread schedule. Each search is
+    timed on the host clock, ending in a synchronize, and the plain path
+    apart; ``first_ms`` keeps query 0's own wall ms per sigma."""
+    identical = total = crossed = 0
+    wall_ms, first_ms, per_search, cpu_s = {}, {}, {}, 0.0
     for sigma in PARITY_SIGMAS:
         mask = masks[sigma]
         many = search_many(Q, k=K, efs=EFS, semimask=mask)
+        lanes0, paths0 = kernel.ONE_LANE_LAUNCHES, dict(kernel.PATH_LAUNCHES)
+        walls = []
         for i in range(len(Q)):
+            sync()
+            t0 = time.perf_counter()
             one = search_one(Q[i], k=K, efs=EFS, semimask=mask)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
             check(_same_result(one, many, i),
                   f"{name} sigma={sigma} lane {i}: batched engine != "
                   f"single-query search on the card")
+            if sigma in sweep:
+                check(_same_result(one, sweep[sigma], i),
+                      f"{name} sigma={sigma} lane {i}: the sweep's B="
+                      f"{N_QUERIES} batch != single-query search")
+                crossed += 1
+        lanes = kernel.ONE_LANE_LAUNCHES - lanes0
+        grew = {s: kernel.PATH_LAUNCHES[s] - paths0[s] for s in SCHEDULES}
+        check(lanes > 0 and grew == {"tiled": 0, "spread": lanes},
+              f"{name} sigma={sigma}: {lanes} one-lane launches, by "
+              f"schedule {grew}")
+        wall_ms[sigma] = float(np.mean(walls))
+        first_ms[sigma] = walls[0]
+        per_search[sigma] = lanes / len(Q)
+        t0 = time.perf_counter()
         plain = cpu_many(Q, k=K, efs=EFS, semimask=mask)
+        cpu_s += time.perf_counter() - t0
         gpu_ids, gpu_d = many.ids.cpu(), many.dists.cpu()
         for i in range(len(Q)):
             total += 1
@@ -1073,29 +1346,86 @@ def _parity_arm(name: str, search_one, search_many, cpu_many, Q, masks
     check(identical >= 0.99 * total,
           f"{name}: only {identical}/{total} lanes identical to the plain "
           f"path")
-    return identical, total
+    return {"identical": identical, "total": total, "crossed": crossed,
+            "wall_ms": wall_ms, "first_ms": first_ms,
+            "per_search": per_search, "cpu_s": cpu_s}
 
 
-def phase_parity(idx, qidx, Q: np.ndarray, masks) -> None:
+def _profile_single(search_one, q, mask, int8: bool) -> tuple:
+    """One single-query search under torch.profiler: (wall ms, device busy
+    ms, the gather kernel's ms, device ops). Device activity only: what is
+    read here are device events, and the host's events of a search's
+    ~53,000 device ops would triple the profiler's own seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        search_one(q, k=K, efs=EFS, semimask=mask)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops_ms = device_ops(prof)
+    busy_ms = sum(t for _, t, _ in ops_ms)
+    check(busy_ms > 0, "the profiler saw no device time in a search")
+    return (wall_ms, busy_ms, _gather_kernel_ms(ops_ms, int8),
+            sum(c for _, _, c in ops_ms))
+
+
+def phase_parity(idx, qidx, Q: np.ndarray, masks, f32_sweep: dict,
+                 int8_sweep: dict) -> None:
+    t_phase = time.perf_counter()
     Qp = Q[:PARITY_LANES]
     cpu = torch.device("cpu")
     cpu_idx = NavixIndex.from_graph(idx.graph, idx.config, device="cpu")
-    f32 = _parity_arm("f32", idx.search, idx.search_many,
-                      cpu_idx.search_many, Qp, masks)
+    arms = {"f32": _parity_arm(
+        "f32", gather_distance, idx.search, idx.search_many,
+        cpu_idx.search_many, Qp, masks,
+        {s: r[0] for s, r in f32_sweep.items()})}
     del cpu_idx
     # the CPU copy keeps the host exact tier; only the graph moves
     cpu_q = dataclasses.replace(qidx, graph=qidx.graph.to(cpu),
                                 quantized=None)
-    int8 = _parity_arm("int8", qidx.search_quantized,
-                       qidx.search_quantized_many,
-                       cpu_q.search_quantized_many, Qp, masks)
+    arms["int8"] = _parity_arm(
+        "int8", quantized_gather_distance, qidx.search_quantized,
+        qidx.search_quantized_many, cpu_q.search_quantized_many, Qp, masks,
+        int8_sweep)
     lanes = len(PARITY_SIGMAS) * PARITY_LANES
+    f32, int8 = arms["f32"], arms["int8"]
     print(f"[parity] batched == single-query on the card, bit for bit: f32 "
           f"{lanes}/{lanes}, int8 {lanes}/{lanes} lanes (sigma "
-          f"{PARITY_SIGMAS}); kernel path vs plain path on CPU copies: f32 "
-          f"{f32[0]}/{f32[1]}, int8 {int8[0]}/{int8[1]} lanes with identical"
-          f" ids, the rest differ only at ties within 1e-5 relative",
-          flush=True)
+          f"{PARITY_SIGMAS}; of them f32 {f32['crossed']} and int8 "
+          f"{int8['crossed']} also equal the same lane of the sweep's B="
+          f"{N_QUERIES} batch, launched tiled); kernel path vs plain path on "
+          f"CPU copies: f32 {f32['identical']}/{f32['total']}, int8 "
+          f"{int8['identical']}/{int8['total']} lanes with identical ids, "
+          f"the rest differ only at ties within 1e-5 relative", flush=True)
+    t_prof = time.perf_counter()
+    profiled = {
+        "f32": _profile_single(idx.search, Qp[0], masks[0.1], int8=False),
+        "int8": _profile_single(qidx.search_quantized, Qp[0], masks[0.1],
+                                int8=True)}
+    phase_s = time.perf_counter() - t_phase
+    prof_s = time.perf_counter() - t_prof
+    cpu_s = f32["cpu_s"] + int8["cpu_s"]
+    parts = []
+    for name, arm in arms.items():
+        wall, busy, kern, n_ops = profiled[name]
+        parts.append(
+            f"{name}: mean wall ms per search "
+            + ", ".join(f"sigma={s} {ms:.3f}" for s, ms in
+                        arm["wall_ms"].items())
+            + "; one-lane launches per search "
+            + ", ".join(f"{s} {n:.1f}" for s, n in arm["per_search"].items())
+            + f"; one search at sigma=0.1 under torch.profiler: wall "
+            f"{wall:.3f} ms, device busy {busy:.4f} ms in {n_ops} device ops "
+            f"({100 * busy / arm['first_ms'][0.1]:.1f}% of the same query's "
+            f"unprofiled wall, {arm['first_ms'][0.1]:.3f} ms), the gather "
+            f"kernel {kern:.4f} ms "
+            f"({100 * kern / busy:.1f}% of device busy)")
+    print("[single] " + " | ".join(parts)
+          + f" | plain path on CPU copies {cpu_s:.3f}s of the phase's "
+          f"{phase_s:.3f}s ({100 * cpu_s / phase_s:.1f}%), the two "
+          f"profiled searches {prof_s:.3f}s", flush=True)
 
 
 def main() -> int:
@@ -1116,6 +1446,7 @@ def main() -> int:
 
     smi = phase_device()
     timed("nvcc", phase_build_kernels)
+    timed("floor", phase_launch_floor)
     kernels = timed("kernel", phase_kernel)
     torch.cuda.empty_cache()
     kernels += timed("kernel_int8", phase_kernel_int8)
@@ -1140,10 +1471,13 @@ def main() -> int:
     idx = timed("build", phase_build, X)               # + search
     del X
     build_launches = gather_distance.LAUNCHES
+    build_spread = gather_distance.PATH_LAUNCHES["spread"]
     f32 = timed("search", phase_search, idx, Q, sweep)
     counts = launch_counts()
     check(counts["gather_distance_batch"] > build_launches,
           "the search phase launched no gather_distance kernel")
+    check(gather_distance.PATH_LAUNCHES["spread"] == build_spread,
+          "the f32 sweep launched the spread schedule")
     check(counts["quantized_gather_distance_batch"] == 0,
           "the f32 path launched the int8 kernel")
     kernels["gather_distance_batch"]["launches"] = \
@@ -1152,15 +1486,18 @@ def main() -> int:
 
     reset_counts()                                     # int8 path: quantize
     qidx = timed("quantize", phase_quantize, idx)      # + int8 sweep
-    timed("search_int8", phase_search_int8, qidx, Q, sweep, f32)
+    int8 = timed("search_int8", phase_search_int8, qidx, Q, sweep, f32)
     counts = launch_counts()
     check(counts["gather_distance_batch"] == counts["gather_distance"] == 0,
           "the int8 path launched an f32 gather kernel")
+    int8_paths = dict(quantized_gather_distance.PATH_LAUNCHES)
+    check(int8_paths["spread"] == 0,
+          "the int8 sweep launched the spread schedule")
     kernels["quantized_gather_distance_batch"]["launches"] = \
         counts["quantized_gather_distance_batch"]
 
     reset_counts()                                     # single-query oracle
-    timed("parity", phase_parity, idx, qidx, Q, masks)
+    timed("parity", phase_parity, idx, qidx, Q, masks, f32, int8)
     counts = launch_counts()
     for name in ("gather_distance", "quantized_gather_distance"):
         kernels[name]["launches"] = counts[name]
@@ -1172,14 +1509,17 @@ def main() -> int:
           f"{kernels['quantized_distance_matrix']['launches']} and "
           f"csr_segment_sum {kernels['csr_segment_sum']['launches']} through "
           f"their ops entries (their whole path)", flush=True)
-    print(f"[launches] gather_distance_batch: {build_launches} in the build, "
+    print(f"[launches] gather_distance_batch: {build_launches} in the build "
+          f"({build_spread} of them spread), "
           f"{kernels['gather_distance_batch']['launches'] - build_launches} "
-          f"in the f32 sweep; quantized_gather_distance_batch: "
+          f"in the f32 sweep (spread 0); quantized_gather_distance_batch: "
           f"{kernels['quantized_gather_distance_batch']['launches']} in the "
-          f"int8 sweep; one-lane gather_distance "
-          f"{counts['gather_distance']} and quantized_gather_distance "
-          f"{counts['quantized_gather_distance']} in the single-query "
-          f"searches of the parity phase", flush=True)
+          f"int8 sweep (tiled {int8_paths['tiled']}, spread 0); one-lane "
+          f"gather_distance {counts['gather_distance']} and "
+          f"quantized_gather_distance {counts['quantized_gather_distance']} "
+          f"in the single-query searches of the parity phase "
+          f"({len(PARITY_SIGMAS) * PARITY_LANES} an arm and one profiled), "
+          f"all spread", flush=True)
     for name, entry in kernels.items():
         check(entry.get("launches", 0) > 0,
               f"{name}: launched no time on its path")

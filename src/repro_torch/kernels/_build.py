@@ -16,6 +16,7 @@ tensors with :func:`check_cuda_inputs` and launches through
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -33,6 +34,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the metric codes of the distance kernels' C interface
 METRIC_CODE = {"l2": 0, "cos": 1, "dot": 2}
 INT32_MAX = 2 ** 31 - 1
+#: the schedule codes of the gather-distance kernels' C interface
+SCHEDULE_CODE = {"tiled": 0, "spread": 1}
+#: candidates of one lane that a tiled gather block takes (``kTileK`` in
+#: both gather sources)
+TILE_K = 64
 
 _loaded: dict[str, ctypes.CDLL] = {}
 #: per source: nvcc's output of the last build in this process (registers,
@@ -89,6 +95,20 @@ def bind(name: str, symbol: str, argtypes: list):
     fn.argtypes = [*argtypes, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of CUDA ``device`` (read once per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def schedule(bsz: int, k: int, sm_count: int, min_share: float) -> str:
+    """The gather kernels' schedule: ``"tiled"`` when the tiled grid,
+    bsz * ceil(k / TILE_K) blocks, has at least ``min_share * sm_count``
+    blocks, else ``"spread"``."""
+    blocks = bsz * -(-k // TILE_K)
+    return "tiled" if blocks >= min_share * sm_count else "spread"
 
 
 def check_cuda_inputs(kernel: str, **tensors: torch.Tensor) -> None:

@@ -3,10 +3,14 @@
 Replaces the TPU kernels ``repro/kernels/gather_distance.py::
 gather_distance_batch_pallas`` (:func:`gather_distance_batch`) and
 ``gather_distance_pallas`` (:func:`gather_distance`, a one-lane launch of
-the same kernel, so the single-query oracle and the batched engine share
-one summation order); the source note in the ``.cu`` file gives the
-kernel's bound and design. The plain PyTorch versions are
-``kernels/ref.py::gather_distance_batch`` and ``gather_distance``.
+the same kernel). The kernel runs in two schedules, which :func:`plan`
+picks by grid size: ``"tiled"`` (a block per lane and tile of 64
+candidates) where that grid fills the card, ``"spread"`` (a warp per
+candidate) below it. Both sum a row in one order, so the single-query
+oracle and the batched engine agree bit for bit; the source note in the
+``.cu`` file gives the kernel's bound and design. The plain PyTorch
+versions are ``kernels/ref.py::gather_distance_batch`` and
+``gather_distance``.
 """
 
 from __future__ import annotations
@@ -21,11 +25,32 @@ from repro_torch.kernels import _build
 LAUNCHES = 0
 #: one-lane launches made by :func:`gather_distance` in this process
 ONE_LANE_LAUNCHES = 0
+#: the launches of both entries, by schedule
+PATH_LAUNCHES = {"tiled": 0, "spread": 0}
+
+#: the least share of the card's SMs that the tiled grid must have blocks
+#: for. On an H100 (cold rows, d = 960; PERF.md) the spread schedule is
+#: faster for one lane (3.15x at K = 64) and ties the tiled one at B = 1024
+#: (1.01x at K = 64); the tiled one is faster at the build's full morsels
+#: (1.10-1.11x at B = 2048, K = 40 to 72; 1.31x at B = 65,536, K = 72).
+#: At the SM count the batched search (B = 1024) and the full morsels run
+#: tiled
+TILED_MIN_SHARE = 1.0
 
 
 def _kernel():
     return _build.bind("gather_distance", "navix_gather_distance_batch_f32",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7)
+
+
+def plan(bsz: int, k: int, d: int, sm_count: int,
+         *ptrs: int) -> tuple[str, bool]:
+    """(schedule, 16-byte loads) of a launch over Q[bsz, d] and ids[bsz, k]
+    on a card of ``sm_count`` SMs: ``_build.schedule`` at
+    :data:`TILED_MIN_SHARE`; 16-byte loads when d % 4 == 0 and every
+    pointer in ``ptrs`` (Q's, the vectors') is 16-byte aligned."""
+    vec = d % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    return _build.schedule(bsz, k, sm_count, TILED_MIN_SHARE), vec
 
 
 def gather_distance_batch(Q: torch.Tensor, vectors: torch.Tensor,
@@ -54,8 +79,11 @@ def gather_distance(q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
 
 
 def _launch(Q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
-            metric: str) -> tuple[torch.Tensor, bool]:
-    """Check the inputs, launch the kernel; (out, whether it launched)."""
+            metric: str, schedule: str | None = None
+            ) -> tuple[torch.Tensor, bool]:
+    """Check the inputs, launch the kernel on the schedule :func:`plan`
+    picks (or on ``schedule``, which only measurements name); (out,
+    whether it launched)."""
     _build.check_cuda_inputs("gather_distance_batch", Q=Q, vectors=vectors,
                              ids=ids)
     if Q.dtype != torch.float32 or vectors.dtype != torch.float32:
@@ -78,7 +106,12 @@ def _launch(Q: torch.Tensor, vectors: torch.Tensor, ids: torch.Tensor,
     out = torch.empty((bsz, k), dtype=torch.float32, device=Q.device)
     if bsz == 0 or k == 0:
         return out, False
+    picked, vec = plan(bsz, k, d, _build.sm_count(Q.device), Q.data_ptr(),
+                       vectors.data_ptr())
+    schedule = schedule or picked
     _build.launch("gather_distance_batch", _kernel(), Q.device, Q.data_ptr(),
                   vectors.data_ptr(), ids.data_ptr(), out.data_ptr(), bsz, k,
-                  n, d, _build.METRIC_CODE[metric])
+                  n, d, _build.METRIC_CODE[metric], _build.SCHEDULE_CODE[schedule],
+                  int(vec))
+    PATH_LAUNCHES[schedule] += 1
     return out, True

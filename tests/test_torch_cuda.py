@@ -123,8 +123,9 @@ def test_int8_kernel_matches_plain_version(cuda, metric, d, k):
     assert quantized_gather_distance.LAUNCHES == before + 1
     _close(got, ref.quantized_gather_distance_batch(Q, store.codes,
                                                     store.scale, ids, metric))
-    # one lane: the single-query entry launches the same kernel, so it
-    # gives the batched lane's bits
+    # one lane: the single-query entry sums each row in the batch's order,
+    # so it gives the batched lane's bits (both launches run spread here;
+    # test_int8_one_lane_entry_equals_batched_lane crosses the schedules)
     before = quantized_gather_distance.ONE_LANE_LAUNCHES
     one = ops.quantized_gather_distance(Q[5], store.codes, store.scale,
                                         ids[5], metric)
@@ -132,20 +133,81 @@ def test_int8_kernel_matches_plain_version(cuda, metric, d, k):
     assert torch.equal(one, got[5])
 
 
-@pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
-@pytest.mark.parametrize("k", [1, 32, 64])
-def test_f32_one_lane_entry_equals_batched_lane(cuda, metric, k):
-    gen = torch.Generator(device=cuda).manual_seed(k)
-    X = torch.randn((5000, 960), generator=gen, device=cuda)
-    Q = torch.randn((8, 960), generator=gen, device=cuda)
-    ids = torch.randint(-1, 5010, (8, k), generator=gen, device=cuda,
+def _lanes_of_a_tiled_batch(cuda, kernel, d, k, metric):
+    """One-lane launches (the spread schedule) at lanes 1, 517 and 1023 of
+    a B = 1024 batch (the tiled schedule) on the same q and ids: bit for
+    bit the batch's lanes, and the plain version's within tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(d + k)
+    X = torch.randn((5000, d), generator=gen, device=cuda)
+    Q = torch.randn((1024, d), generator=gen, device=cuda)
+    ids = torch.randint(-1, 5010, (1024, k), generator=gen, device=cuda,
                         dtype=torch.int32)
-    many = ops.gather_distance_batch(Q, X, ids, metric)
-    before = gather_distance.ONE_LANE_LAUNCHES
-    one = ops.gather_distance(Q[2], X, ids[2], metric)
-    assert gather_distance.ONE_LANE_LAUNCHES == before + 1
-    assert torch.equal(one, many[2])
-    _close(one, ref.gather_distance(Q[2], X, ids[2], metric))
+    if kernel is gather_distance:
+        args = (X,)
+        batched, one_lane = ops.gather_distance_batch, ops.gather_distance
+        plain = ref.gather_distance
+    else:
+        store = quantize(X)
+        args = (store.codes, store.scale)
+        batched = ops.quantized_gather_distance_batch
+        one_lane = ops.quantized_gather_distance
+        plain = ref.quantized_gather_distance
+    paths = dict(kernel.PATH_LAUNCHES)
+    many = batched(Q, *args, ids, metric)
+    before = kernel.ONE_LANE_LAUNCHES
+    for i in (1, 517, 1023):
+        one = one_lane(Q[i], *args, ids[i], metric)
+        assert torch.equal(one, many[i])
+        _close(one, plain(Q[i], *args, ids[i], metric))
+    assert kernel.ONE_LANE_LAUNCHES == before + 3
+    assert {s: kernel.PATH_LAUNCHES[s] - paths[s] for s in paths} \
+        == {"tiled": 1, "spread": 3}
+
+
+@pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
+@pytest.mark.parametrize("d", [960, 33])
+@pytest.mark.parametrize("k", [1, 32, 64, 72])
+def test_f32_one_lane_entry_equals_batched_lane(cuda, metric, d, k):
+    _lanes_of_a_tiled_batch(cuda, gather_distance, d, k, metric)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
+@pytest.mark.parametrize("d", [960, 33])
+@pytest.mark.parametrize("k", [1, 32, 64, 72])
+def test_int8_one_lane_entry_equals_batched_lane(cuda, metric, d, k):
+    _lanes_of_a_tiled_batch(cuda, quantized_gather_distance, d, k, metric)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
+@pytest.mark.parametrize("d", [960, 33])
+@pytest.mark.parametrize("k", [1, 32, 64, 72])
+@pytest.mark.parametrize("bsz", [1, 200])
+@pytest.mark.parametrize("schedule", ["tiled", "spread"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_each_schedule_matches_plain_version(cuda, int8, schedule, bsz, k,
+                                             d, metric):
+    """Each schedule, named whatever the plan would pick, against the
+    plain version; and the two schedules against each other, bit for
+    bit."""
+    gen = torch.Generator(device=cuda).manual_seed(bsz + k + d)
+    X = torch.randn((5000, d), generator=gen, device=cuda)
+    Q = torch.randn((bsz, d), generator=gen, device=cuda)
+    ids = torch.randint(-1, 5010, (bsz, k), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    if int8:
+        store = quantize(X)
+        args = (store.codes, store.scale)
+        launch = quantized_gather_distance._launch
+        plain = ref.quantized_gather_distance_batch
+    else:
+        args = (X,)
+        launch = gather_distance._launch
+        plain = ref.gather_distance_batch
+    got, launched = launch(Q, *args, ids, metric, schedule)
+    assert launched
+    _close(got, plain(Q, *args, ids, metric))
+    other = "spread" if schedule == "tiled" else "tiled"
+    assert torch.equal(got, launch(Q, *args, ids, metric, other)[0])
 
 
 def test_int8_wrapper_checks_its_inputs(cuda):

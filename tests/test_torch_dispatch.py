@@ -36,9 +36,10 @@ def no_cuda(monkeypatch):
 @pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
 def test_cpu_tensor_runs_plain_version_and_launches_nothing(metric):
     Q, X, ids = _inputs()
-    before = gather_distance.LAUNCHES
+    before = gather_distance.LAUNCHES, dict(gather_distance.PATH_LAUNCHES)
     got = ops.gather_distance_batch(Q, X, ids, metric)
-    assert gather_distance.LAUNCHES == before
+    assert (gather_distance.LAUNCHES, gather_distance.PATH_LAUNCHES) \
+        == before
     assert torch.equal(got, ref.gather_distance_batch(Q, X, ids, metric))
 
 
@@ -46,18 +47,19 @@ def test_cpu_tensor_runs_plain_version_and_launches_nothing(metric):
 def test_cpu_store_runs_plain_version_and_launches_nothing(metric):
     Q, X, ids = _inputs()
     store = quantize(X)
-    counts = (quantized_gather_distance.LAUNCHES,
-              quantized_gather_distance.ONE_LANE_LAUNCHES,
-              gather_distance.LAUNCHES, gather_distance.ONE_LANE_LAUNCHES)
+    def counts():
+        return (quantized_gather_distance.LAUNCHES,
+                quantized_gather_distance.ONE_LANE_LAUNCHES,
+                dict(quantized_gather_distance.PATH_LAUNCHES),
+                gather_distance.LAUNCHES, gather_distance.ONE_LANE_LAUNCHES,
+                dict(gather_distance.PATH_LAUNCHES))
+    before = counts()
     got = ops.quantized_gather_distance_batch(Q, store.codes, store.scale,
                                               ids, metric)
     one = ops.quantized_gather_distance(Q[1], store.codes, store.scale,
                                         ids[1], metric)
     f32_one = ops.gather_distance(Q[1], X, ids[1], metric)
-    assert counts == (quantized_gather_distance.LAUNCHES,
-                      quantized_gather_distance.ONE_LANE_LAUNCHES,
-                      gather_distance.LAUNCHES,
-                      gather_distance.ONE_LANE_LAUNCHES)
+    assert counts() == before
     assert torch.equal(got, ref.quantized_gather_distance_batch(
         Q, store.codes, store.scale, ids, metric))
     assert torch.equal(one, got[1])
