@@ -10,8 +10,10 @@ one-lane launches on the spread one, the two schedules against each other
 bit for bit, and both timed on cold rows beside an empty kernel's launch
 floor; the all-pairs f32 distance on both its paths, streaming for b <= 16
 and on the tensor cores above, at a 1M-candidate retrieval, b = 16, a
-serve batch and GIST width; the int8 all-pairs distance; the CSR segment
-sum on the ogb_products graph),
+serve batch and GIST width; the int8 all-pairs distance on both its paths,
+streaming at a 1M-row scan and on the tensor cores at GIST width, also
+against float64, with a sweep of batch sizes across both paths; the CSR
+segment sum on the ogb_products graph),
 answers 8 recsys retrieval requests of BST at full width (1M candidates
 out of a 5M-item table, through the all-pairs kernel, each answer held
 against the plain path, one of them profiled), builds a GIST1M-shaped index
@@ -81,14 +83,18 @@ PARITY_SIGMAS = (1.0, 0.1, 0.01)
 # kernel vs plain version: a different f32 summation order
 RTOL, ATOL = 1e-5, 1e-4
 # the card's memory rate, f32 rate outside the tensor cores and dense TF32
-# rate (H100 SXM data sheet) for the bounds
+# and BF16 rates (H100 SXM data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
-# TF32 products per product on the cheapest f32-accurate route: a 3xTF32
-# split of f32 values (kernel 5), 2 for int8 codes, which TF32 holds exactly
-# (kernel 6)
-TF32_PRODUCTS = {4: 3, 1: 2}
+BF16_FLOPS_PER_S = 989e12
+# f32-accurate tensor-core routes of the all-pairs kernels: (products a
+# product, their rate). f32 rows split 3xTF32 (kernel 5); int8 codes are
+# exact in TF32 and in BF16, so only Q splits: in three BF16 pieces (kernel
+# 6's route, the cheapest) or in two TF32 pieces (the route it did not keep)
+ROUTES = {"tf32x3": (3, TF32_FLOPS_PER_S), "tf32x2": (2, TF32_FLOPS_PER_S),
+          "bf16x3": (3, BF16_FLOPS_PER_S)}
+CHEAPEST_ROUTE = {4: "tf32x3", 1: "bf16x3"}
 # the reference's tolerances for the all-pairs kernels (tests/test_kernels.py)
 # and the segment sum's (summed in another order than index_add_'s atomics)
 MATRIX_TOL = 1e-4
@@ -98,8 +104,15 @@ SEGMENT_TOL = 1e-5
 # a serve_p99 batch and GIST width (its tensor-core path)
 MATRIX_SHAPES = ((1, 1_000_000, 32), (16, 1_000_000, 32),
                  (512, 1_000_000, 32), (1024, 65_536, 960))
-# kernel 6: an int8 brute-force scan, and GIST width
+# kernel 6: an int8 brute-force scan (its streaming path), and GIST width
+# (its tensor-core path)
 QUANT_SHAPES = ((8, 1_000_000, 960), (1024, 65_536, 960))
+# ... both paths timed at (n, d) = (1M, 960) across these batch sizes: the
+# sweep that sets quantized.STREAM_MAX_BATCH
+QUANT_SWEEP_BATCHES = (1, 2, 4, 8, 12, 16, 24, 32, 64, 128)
+# each path's max abs error against float64 may be at most this many times
+# the plain version's
+F64_ERR_RATIO = 4.0
 # kernel 7: meshgraphnet's ogb_products graph (configs/meshgraphnet.py) at its
 # d_hidden, edges padded to a multiple of 512
 OGB_NODES, OGB_EDGES, OGB_D = 2_449_029, 61_859_140, 128
@@ -143,17 +156,20 @@ KERNELS = {
                         "src/repro/kernels/distance_matrix.py:59"),
     "distance_matrix_wgmma": (f"{CSRC}/distance_matrix_wgmma.cu",
                               "src/repro/kernels/distance_matrix.py:59"),
-    "quantized_distance_matrix": (f"{CSRC}/quantized_distance.cu",
+    "quantized_distance_matrix": (f"{CSRC}/quantized_distance_stream.cu",
                                   "src/repro/kernels/quantized.py:61"),
+    "quantized_distance_matrix_wgmma": (f"{CSRC}/quantized_distance_wgmma.cu",
+                                        "src/repro/kernels/quantized.py:61"),
     "csr_segment_sum": (f"{CSRC}/segment_sum.cu",
                         "src/repro/kernels/segment_sum.py:59"),
 }
 #: the sources ``_build`` compiles, one nvcc each: the kernels' (the
-#: all-pairs f32 distance in its two paths) and the CUDA error message every
-#: wrapper raises with
+#: all-pairs f32 and int8 distances in two paths each) and the CUDA error
+#: message every wrapper raises with
 SOURCES = ("gather_distance", "quantized_gather_distance",
            "distance_matrix_stream", "distance_matrix_wgmma",
-           "quantized_distance", "segment_sum", "cuda_error")
+           "quantized_distance_stream", "quantized_distance_wgmma",
+           "segment_sum", "cuda_error")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -236,7 +252,9 @@ def launch_counts() -> dict[str, int]:
                 quantized_gather_distance.ONE_LANE_LAUNCHES,
             "distance_matrix": distance_matrix.PATH_LAUNCHES["stream"],
             "distance_matrix_wgmma": distance_matrix.PATH_LAUNCHES["wgmma"],
-            "quantized_distance_matrix": quantized.LAUNCHES,
+            "quantized_distance_matrix": quantized.PATH_LAUNCHES["stream"],
+            "quantized_distance_matrix_wgmma":
+                quantized.PATH_LAUNCHES["wgmma"],
             "csr_segment_sum": segment_sum.LAUNCHES}
 
 
@@ -245,7 +263,8 @@ def reset_counts() -> None:
     quantized_gather_distance.LAUNCHES = 0
     quantized_gather_distance.ONE_LANE_LAUNCHES = 0
     distance_matrix.LAUNCHES = quantized.LAUNCHES = segment_sum.LAUNCHES = 0
-    for mod in (distance_matrix, gather_distance, quantized_gather_distance):
+    for mod in (distance_matrix, gather_distance, quantized_gather_distance,
+                quantized):
         for path in mod.PATH_LAUNCHES:
             mod.PATH_LAUNCHES[path] = 0
 
@@ -276,13 +295,13 @@ def kernel_entry(name: str, max_abs: float, timing: tuple,
             "library_ms": library_ms}
 
 
-def bound(nbytes: float, flops: float,
-          tf32_flops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0,
+          tc_rate: float = TF32_FLOPS_PER_S) -> tuple[float, str]:
     """(least ms, what bounds it): the larger of the bytes over the memory
     rate and the operations over their rates (f32 operations at the f32
-    rate, TF32 tensor-core operations at the TF32 rate)."""
+    rate, tensor-core operations at ``tc_rate``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / F32_FLOPS_PER_S + tf32_flops / TF32_FLOPS_PER_S) * 1e3
+    t_ops = (flops / F32_FLOPS_PER_S + tc_flops / tc_rate) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -716,35 +735,38 @@ def _check_close(got: torch.Tensor, want: torch.Tensor, tol: float,
 
 
 def _matrix_bound(b: int, n: int, d: int, code_bytes: int, metric: str,
-                  f32_only: bool = False) -> tuple[float, str]:
+                  route: str | None = None) -> tuple[float, str]:
     """Least time of one all-pairs call: Q, X (4 or 1 bytes a value, and a
     4-byte scale a row for int8 codes) and D moved once; the 2bnd flops of
-    the products as TF32 tensor-core operations on the cheapest f32-accurate
-    route (``TF32_PRODUCTS`` each), and the norms' 2(b + n)d f32 flops for
-    l2. ``f32_only``: every flop at the f32 rate outside the tensor cores
-    (the bound of the earlier, CUDA-core kernel)."""
+    the products as tensor-core operations on ``route`` (a key of
+    ``ROUTES``; by default the cheapest f32-accurate one for the operand,
+    ``CHEAPEST_ROUTE``), and the norms' 2(b + n)d f32 flops for l2.
+    ``route="f32"``: every flop at the f32 rate outside the tensor cores
+    (the bound of the earlier, CUDA-core kernels)."""
     nbytes = 4 * b * d + code_bytes * n * d + 4 * b * n
     if code_bytes == 1:
         nbytes += 4 * n
     products = 2 * b * n * d
     norms = 2 * (b + n) * d if metric == "l2" else 0
-    if f32_only:
+    if route == "f32":
         return bound(nbytes, products + norms)
-    return bound(nbytes, norms, TF32_PRODUCTS[code_bytes] * products)
+    k, rate = ROUTES[route or CHEAPEST_ROUTE[code_bytes]]
+    return bound(nbytes, norms, k * products, rate)
 
 
 def _timing_line(name: str, rows: dict, library: str | None,
-                 axes: str = "(b, n, d)", old: dict | None = None) -> str:
+                 axes: str = "(b, n, d)",
+                 other: tuple[str, dict] | None = None) -> str:
     """One line of kernel, plain and library times against the bound, per
-    shape; ``old``: per shape, the f32-only bound, shown beside."""
+    shape; ``other``: (label, per shape another bound), shown beside."""
     parts = []
     for shape, (ms, plain_ms, (b_ms, by), lib_ms) in rows.items():
         lib = (f", {library} {lib_ms:.4f} ms ({100 * b_ms / lib_ms:.1f}%)"
                if lib_ms is not None else "")
         was = ""
-        if old is not None:
-            o_ms, o_by = old[shape]
-            was = (f"; f32-only bound {o_ms:.4f} ms ({o_by}), "
+        if other is not None:
+            o_ms, o_by = other[1][shape]
+            was = (f"; {other[0]} {o_ms:.4f} ms ({o_by}), "
                    f"{100 * o_ms / ms:.1f}% of it")
         parts.append(f"{shape}: kernel {ms:.4f} ms ({100 * b_ms / ms:.1f}% "
                      f"of the bound), plain {plain_ms:.4f} ms "
@@ -798,7 +820,7 @@ def phase_kernel_matrix() -> list[dict]:
             cuda_ms(lambda: ref.distance_matrix(Q, X, "dot"), reps=10),
             _matrix_bound(b, n, d, 4, "dot"),
             cuda_ms(lambda: torch.matmul(Q, X.T), reps=20))
-        old[(b, n, d)] = _matrix_bound(b, n, d, 4, "dot", f32_only=True)
+        old[(b, n, d)] = _matrix_bound(b, n, d, 4, "dot", route="f32")
         if (b, n, d) == MATRIX_SHAPES[2]:
             reset_counts()                   # the wgmma path: its ops entry
             ops.distance_matrix(Q, X, "dot")
@@ -813,7 +835,8 @@ def phase_kernel_matrix() -> list[dict]:
           "equals its row of a streaming batch, the last 64 rows alone equal "
           "the same rows of a tensor-core batch, bit for bit", flush=True)
     print(_timing_line("distance_matrix, dot", rows,
-                       "torch.matmul(Q, X.T) (TF32 off)", old=old)
+                       "torch.matmul(Q, X.T) (TF32 off)",
+                       other=("f32-only bound", old))
           + "; bound: bytes at 3.35 TB/s or 3 TF32 products a product at "
           "495 TFLOP/s", flush=True)
     entries = []
@@ -826,52 +849,165 @@ def phase_kernel_matrix() -> list[dict]:
     return entries
 
 
-def phase_kernel_quantized() -> dict:
-    """Kernel 6 against its plain version at every metric and shape (with
-    zero-scale rows), timed for l2, and driven once through its ops entry
-    (its whole path) at the scan's shape."""
+def _f64_error(got: torch.Tensor, plain: torch.Tensor, Q: torch.Tensor,
+               codes: torch.Tensor, scale: torch.Tensor,
+               metric: str) -> tuple[float, float]:
+    """(max abs error of ``got``, of ``plain``) against the kernel's form in
+    float64 from the same Q, codes and scale: l2 ||q||^2 + s^2 (c.c) -
+    2 s (q.c), cos 1 - s (q.c), dot -s (q.c); in slices of codes to bound
+    the float64 copies."""
+    Q64 = Q.double()
+    qq = (Q64 * Q64).sum(1)[:, None]
+    err = [0.0, 0.0]
+    for i in range(0, codes.shape[0], 1 << 17):
+        c64 = codes[i:i + (1 << 17)].double()
+        s64 = scale[i:i + (1 << 17)].double()[None, :]
+        sdot = (Q64 @ c64.T) * s64
+        if metric == "l2":
+            exact = qq + (s64 * s64) * (c64 * c64).sum(1)[None, :] - 2 * sdot
+        elif metric == "cos":
+            exact = 1 - sdot
+        else:
+            exact = -sdot
+        for j, t in enumerate((got, plain)):
+            err[j] = max(err[j], float(
+                (t[:, i:i + (1 << 17)].double() - exact).abs().max()))
+        del c64, sdot, exact
+    return err[0], err[1]
+
+
+def _quant_inputs(gen: torch.Generator, b: int, n: int, d: int) -> tuple:
+    """Q f32[b, d] normal, codes int8[n, d] uniform in -127 .. 127, scale
+    f32[n] in [1e-3, 0.021) with every 1000th scale 0 (all-zero rows)."""
+    Q = torch.randn((b, d), generator=gen, device="cuda")
+    codes = torch.randint(-127, 128, (n, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    scale = torch.rand((n,), generator=gen, device="cuda") * 0.02 + 1e-3
+    scale[::1000] = 0.0
+    return Q, codes, scale
+
+
+def _check_quant(Q, codes, scale, metric: str, where: str) -> dict:
+    """Kernel 6 through its wrapper (the path ``plan`` picks) against the
+    plain version (rtol = atol = ``QUANT_TOL``) and against float64 (at
+    most ``F64_ERR_RATIO`` times the plain version's error), and the path's
+    bitwise claim: the last row (streaming) or the last 64 rows (tensor
+    cores) computed alone, on the same path, equal the batch's. Returns
+    {"path", "err" (vs plain), "f64", "plain_f64"}."""
+    path = quantized.plan(Q, codes)[0]
+    before = dict(quantized.PATH_LAUNCHES)
+    got = quantized.quantized_distance_matrix(Q, codes, scale, metric)
+    sync()
+    check(quantized.PATH_LAUNCHES[path] == before[path] + 1,
+          f"quantized_distance {where}: not launched on its {path} path")
+    plain = ref.quantized_distance_matrix(Q, codes, scale, metric)
+    err = _check_close(got, plain, QUANT_TOL,
+                       f"quantized_distance {metric} {where}, {path} path")
+    f64, plain_f64 = _f64_error(got, plain, Q, codes, scale, metric)
+    check(f64 <= F64_ERR_RATIO * plain_f64,
+          f"quantized_distance {metric} {where}, {path} path: max abs err "
+          f"{f64:.3e} against float64, over {F64_ERR_RATIO} x the plain "
+          f"version's {plain_f64:.3e}")
+    part = Q[-1:] if path == "stream" else Q[-64:]
+    alone = quantized._launch(part, codes, scale, metric, path)[0]
+    sync()
+    check(torch.equal(alone, got[-part.shape[0]:]),
+          f"quantized_distance {metric} {where}, {path} path: the last "
+          f"{part.shape[0]} rows alone differ from the batch's")
+    return {"path": path, "err": err, "f64": f64, "plain_f64": plain_f64}
+
+
+def phase_kernel_quantized() -> list[dict]:
+    """Kernel 6 on both paths against its plain version and float64 at
+    every metric and shape (with zero-scale rows), each path's bitwise
+    claim, the same at b on both sides of ``STREAM_MAX_BATCH``; timed (l2)
+    beside the composite a user would write (dequantize, then
+    ``torch.matmul`` with TF32 off); both paths timed in turns across
+    ``QUANT_SWEEP_BATCHES`` at (1M, 960); each path driven once through
+    the ops entry (its whole path) at its shape."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    max_abs, rows, old, launches = 0.0, {}, {}, 0
+    errs = {"stream": [0.0, 0.0, 0.0], "wgmma": [0.0, 0.0, 0.0]}
+    rows, tf32x2, launches, paths = {}, {}, {}, {}
+    sweep, t_max = {}, quantized.STREAM_MAX_BATCH
     for b, n, d in QUANT_SHAPES:
-        Q = torch.randn((b, d), generator=gen, device="cuda")
-        codes = torch.randint(-127, 128, (n, d), generator=gen,
-                              device="cuda", dtype=torch.int8)
-        scale = torch.rand((n,), generator=gen, device="cuda") * 0.02 + 1e-3
-        scale[::1000] = 0.0                          # all-zero rows
+        Q, codes, scale = _quant_inputs(gen, b, n, d)
         for metric in ("l2", "cos", "dot"):
-            got = quantized.quantized_distance_matrix(Q, codes, scale, metric)
-            max_abs = max(max_abs, _check_close(
-                got, ref.quantized_distance_matrix(Q, codes, scale, metric),
-                QUANT_TOL, f"quantized_distance {metric} ({b}, {n}, {d})"))
-            del got
+            r = _check_quant(Q, codes, scale, metric, f"({b}, {n}, {d})")
+            paths[(b, n, d)] = r["path"]
+            e = errs[r["path"]]
+            errs[r["path"]] = [max(e[0], r["err"]), max(e[1], r["f64"]),
+                               max(e[2], r["plain_f64"])]
         rows[(b, n, d)] = (
             cuda_ms(lambda: quantized.quantized_distance_matrix(
                 Q, codes, scale, "l2"), reps=10),
             cuda_ms(lambda: ref.quantized_distance_matrix(
                 Q, codes, scale, "l2"), reps=5),
-            _matrix_bound(b, n, d, 1, "l2"), None)
-        old[(b, n, d)] = _matrix_bound(b, n, d, 1, "l2", f32_only=True)
+            _matrix_bound(b, n, d, 1, "l2"),
+            cuda_ms(lambda: torch.matmul(
+                Q, (codes.to(torch.float32) * scale[:, None]).T), reps=5))
+        tf32x2[(b, n, d)] = _matrix_bound(b, n, d, 1, "l2", route="tf32x2")
+        reset_counts()                   # its path: the ops entry
+        ops.quantized_distance_matrix(Q, codes, scale, "l2")
+        sync()
+        launches[paths[(b, n, d)]] = \
+            quantized.PATH_LAUNCHES[paths[(b, n, d)]]
         if (b, n, d) == QUANT_SHAPES[0]:
-            reset_counts()                           # its path: the ops entry
-            ops.quantized_distance_matrix(Q, codes, scale, "l2")
-            sync()
-            launches = quantized.LAUNCHES
+            # b on both sides of the threshold, then the sweep, on the
+            # scan's codes
+            for bt in (t_max, t_max + 1):
+                Qt = torch.randn((bt, d), generator=gen, device="cuda")
+                for metric in ("l2", "cos", "dot"):
+                    r = _check_quant(Qt, codes, scale, metric,
+                                     f"({bt}, {n}, {d})")
+                    check(r["path"] == ("stream" if bt == t_max
+                                        else "wgmma"),
+                          f"b={bt} planned on the {r['path']} path")
+            Qs = torch.randn((max(QUANT_SWEEP_BATCHES), d), generator=gen,
+                             device="cuda")
+            for bs in QUANT_SWEEP_BATCHES:
+                Qb = Qs[:bs]
+                sweep[bs] = in_turns(lambda p: cuda_ms(
+                    lambda: quantized._launch(Qb, codes, scale, "l2", p),
+                    reps=5), names=("stream", "wgmma"))
+                sweep[bs]["bound"] = _matrix_bound(bs, n, d, 1, "l2")[0]
+            del Qs, Qb, Qt
         del Q, codes, scale
         torch.cuda.empty_cache()
     print("[kernel] quantized_distance == plain version, l2/cos/dot, at "
-          + ", ".join(str(s) for s in QUANT_SHAPES)
-          + f", every 1000th scale 0: max abs err {max_abs:.3e} (rtol = atol"
-          f" = {QUANT_TOL})", flush=True)
-    print(_timing_line("quantized_distance, l2", rows, None, old=old)
-          + "; bound: bytes at 3.35 TB/s or 2 TF32 products a product at 495 "
-          "TFLOP/s (int8 codes are exact in TF32); no single PyTorch call "
-          "multiplies f32 rows by scaled int8 rows (library: none)",
+          + ", ".join(f"{s} ({p})" for s, p in paths.items())
+          + f" and b = {t_max} (stream), {t_max + 1} (wgmma) against the "
+          f"scan's codes, every 1000th scale 0: max abs err "
+          + ", ".join(f"{p} {e[0]:.3e}" for p, e in errs.items())
+          + f" (rtol = atol = {QUANT_TOL}); against float64: "
+          + ", ".join(f"{p} {e[1]:.3e} (plain {e[2]:.3e}, "
+                      f"{e[1] / e[2]:.2f}x)" for p, e in errs.items())
+          + f" (at most {F64_ERR_RATIO}x the plain version's); the last row "
+          "alone equals its row of a streaming batch, the last 64 rows alone "
+          "the same rows of a tensor-core batch, bit for bit", flush=True)
+    print(_timing_line("quantized_distance, l2", rows,
+                       "dequantize + torch.matmul (two calls, TF32 off)",
+                       other=("2xTF32 bound", tf32x2))
+          + "; bound: bytes at 3.35 TB/s or 3 BF16 products a product at "
+          "989 TFLOP/s (int8 codes are exact in BF16; Q in three pieces)",
           flush=True)
-    ms, plain_ms, (b_ms, by), _ = rows[QUANT_SHAPES[0]]
-    entry = kernel_entry("quantized_distance_matrix", max_abs,
-                         (ms, plain_ms, b_ms), by)
-    entry["launches"] = launches
-    return entry
+    wins = [bs for bs, t in sweep.items() if t["stream"] <= t["wgmma"]]
+    print(f"[kernel] quantized_distance paths at (b, {QUANT_SHAPES[0][1]}, "
+          f"{QUANT_SHAPES[0][2]}), l2, ms (stream / wgmma, bound): "
+          + "; ".join(f"b={bs}: {t['stream']:.4f} / {t['wgmma']:.4f}, "
+                      f"{t['bound']:.4f}" for bs, t in sweep.items())
+          + f"; stream faster at b = {wins}; STREAM_MAX_BATCH = {t_max}",
+          flush=True)
+    entries = []
+    for name, shape in (("quantized_distance_matrix", QUANT_SHAPES[0]),
+                        ("quantized_distance_matrix_wgmma", QUANT_SHAPES[1])):
+        ms, plain_ms, (b_ms, by), _ = rows[shape]
+        # library: none; the composite above is two calls (dequantize, then
+        # matmul) and leaves out the metric's epilogue
+        entry = kernel_entry(name, errs[paths[shape]][0],
+                             (ms, plain_ms, b_ms), by)
+        entry["launches"] = launches.get(paths[shape], 0)
+        entries.append(entry)
+    return entries
 
 
 def phase_kernel_segment() -> dict:
@@ -1452,7 +1588,7 @@ def main() -> int:
     kernels += timed("kernel_int8", phase_kernel_int8)
     torch.cuda.empty_cache()
     kernels += timed("kernel_matrix", phase_kernel_matrix)
-    kernels.append(timed("kernel_quantized", phase_kernel_quantized))
+    kernels += timed("kernel_quantized", phase_kernel_quantized)
     kernels.append(timed("kernel_segment", phase_kernel_segment))
     kernels = {k["name"]: k for k in kernels}
     # the recsys retrieval path, its counts read just after its requests
@@ -1506,9 +1642,12 @@ def main() -> int:
           f"the recsys requests, "
           f"{kernels['distance_matrix_wgmma']['launches']} on its tensor-core "
           f"path through its ops entry; quantized_distance_matrix "
-          f"{kernels['quantized_distance_matrix']['launches']} and "
-          f"csr_segment_sum {kernels['csr_segment_sum']['launches']} through "
-          f"their ops entries (their whole path)", flush=True)
+          f"{kernels['quantized_distance_matrix']['launches']} on its "
+          f"streaming path and "
+          f"{kernels['quantized_distance_matrix_wgmma']['launches']} on its "
+          f"tensor-core path, and csr_segment_sum "
+          f"{kernels['csr_segment_sum']['launches']}, through their ops "
+          f"entries (their whole path)", flush=True)
     print(f"[launches] gather_distance_batch: {build_launches} in the build "
           f"({build_spread} of them spread), "
           f"{kernels['gather_distance_batch']['launches'] - build_launches} "

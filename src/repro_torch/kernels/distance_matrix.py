@@ -29,9 +29,6 @@ STREAM_MAX_BATCH = 16
 #: b travels to both paths as a C int; the wgmma path's persistent grid
 #: (one block per SM) walks any number of tiles
 MAX_BATCH = _build.INT32_MAX
-#: kernel 6's grid (``csrc/distance_tile.cuh``): at most 65535 tiles of 16
-#: query rows along b
-TILED_MAX_BATCH = 65535 * 16
 
 
 def _kernel(path: str):
@@ -41,7 +38,7 @@ def _kernel(path: str):
 
 
 def check_pairs_shapes(Q: torch.Tensor, X: torch.Tensor, metric: str,
-                       max_batch: int = TILED_MAX_BATCH) -> None:
+                       max_batch: int) -> None:
     """Raise unless Q[b, d] and X[n, d] fit an all-pairs kernel's ranges
     (b at most ``max_batch``)."""
     if Q.dtype != torch.float32:

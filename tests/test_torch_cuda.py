@@ -299,9 +299,28 @@ def test_distance_matrix_kernel_on_unaligned_rows(cuda, b):
         assert torch.equal(got, aligned)
 
 
+def _quantized_f64(Q, codes, scale, metric):
+    """Kernel 6's form in float64 from the same Q, codes and scale."""
+    Q64, c64, s64 = Q.double(), codes.double(), scale.double()[None, :]
+    sdot = (Q64 @ c64.T) * s64
+    if metric == "l2":
+        return ((Q64 * Q64).sum(1)[:, None]
+                + (s64 * s64) * (c64 * c64).sum(1)[None, :] - 2 * sdot)
+    return 1 - sdot if metric == "cos" else -sdot
+
+
+_T = quantized.STREAM_MAX_BATCH
+
+
 @pytest.mark.parametrize("metric", ["l2", "cos", "dot"])
+# b on both sides of the streaming path's threshold and the tensor-core
+# path's 64-row warpgroup and 128-row tile edges; d = 960 and 64 take
+# 16-byte loads, 100 4-byte copies, 61 byte loads; n off both paths' row
+# tiles (256, 128), 70,000 spans many tiles of each block
 @pytest.mark.parametrize("b,n,d", [(1, 3000, 960), (8, 1000, 61),
-                                   (70, 513, 128)])
+                                   (70, 513, 128), (_T, 3000, 960),
+                                   (_T + 1, 3000, 960), (65, 5000, 100),
+                                   (129, 70_000, 64), (3, 70_000, 61)])
 def test_quantized_distance_kernel_matches_plain_version(cuda, metric, b, n,
                                                          d):
     gen = torch.Generator(device=cuda).manual_seed(b + n + d)
@@ -310,14 +329,49 @@ def test_quantized_distance_kernel_matches_plain_version(cuda, metric, b, n,
                           dtype=torch.int8)
     scale = torch.rand((n,), generator=gen, device=cuda) * 0.02 + 1e-3
     scale[::7] = 0.0                              # all-zero rows
-    before = quantized.LAUNCHES
+    path = "stream" if b <= quantized.STREAM_MAX_BATCH else "wgmma"
+    before = quantized.LAUNCHES, quantized.PATH_LAUNCHES[path]
     got = ops.quantized_distance_matrix(Q, codes, scale, metric)
-    assert quantized.LAUNCHES == before + 1
+    assert (quantized.LAUNCHES, quantized.PATH_LAUNCHES[path]) \
+        == (before[0] + 1, before[1] + 1)
     # the reference's tolerance: the kernel scales last, the plain version
     # dequantizes first
-    torch.testing.assert_close(
-        got, ref.quantized_distance_matrix(Q, codes, scale, metric),
-        rtol=1e-3, atol=1e-3)
+    plain = ref.quantized_distance_matrix(Q, codes, scale, metric)
+    torch.testing.assert_close(got, plain, rtol=1e-3, atol=1e-3)
+    # beyond that gate (an absolute error of ~1.5 at d = 960 for l2): each
+    # path stays within 4x the plain version's error against float64,
+    # which one unsplit TF32 product would not
+    exact = _quantized_f64(Q, codes, scale, metric)
+    assert ((got.double() - exact).abs().max()
+            <= 4 * (plain.double() - exact).abs().max())
+    # each path sums every output over d in one order whatever the batch:
+    # the last row (streaming) or the last 64 rows (tensor cores) computed
+    # alone on the same path equal the batch's
+    part = Q[-1:] if path == "stream" else Q[-64:]
+    alone = quantized._launch(part, codes, scale, metric, path)[0]
+    assert torch.equal(alone, got[-part.shape[0]:])
+
+
+def test_quantized_distance_kernel_on_unaligned_rows(cuda):
+    """Codes at a 4-byte offset (d % 16 == 0, not 16-byte aligned) take
+    the 4-byte copies on either path and give the 16-byte loads' bits."""
+    d, n = 64, 777
+    gen = torch.Generator(device=cuda).manual_seed(d + n)
+    buf = torch.randint(-127, 128, (n * d + 4,), generator=gen, device=cuda,
+                        dtype=torch.int8)
+    codes = buf[4:].view(n, d)
+    scale = torch.rand((n,), generator=gen, device=cuda)
+    for b in (3, quantized.STREAM_MAX_BATCH + 40):
+        Q = torch.randn((b, d), generator=gen, device=cuda)
+        assert quantized.plan(Q, codes)[1] == 4
+        assert quantized.plan(Q, codes.clone())[1] == 16
+        for metric in ("l2", "cos", "dot"):
+            got = ops.quantized_distance_matrix(Q, codes, scale, metric)
+            torch.testing.assert_close(
+                got, ref.quantized_distance_matrix(Q, codes, scale, metric),
+                rtol=1e-3, atol=1e-3)
+            assert torch.equal(got, ops.quantized_distance_matrix(
+                Q, codes.clone(), scale, metric))
 
 
 # per-node degrees of about 1 to 20, as in the GNN graphs (ogb_products

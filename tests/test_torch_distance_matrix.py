@@ -16,7 +16,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.distance_matrix import distance_matrix_pallas
 from repro_torch.kernels import distance_matrix as kernel
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, quantized, ref
 
 RNG = np.random.default_rng(0)
 METRICS = ["l2", "cos", "dot"]
@@ -135,14 +135,15 @@ def test_range_checks_raise_without_a_card(Q, X, metric, error):
 
 def test_max_batch_is_the_kernels_and_kernel_6_keeps_its_own():
     """b up to ``MAX_BATCH`` (a C int) passes this kernel's checks; the
-    int8 kernel's 16-row grid still stops at ``TILED_MAX_BATCH``."""
+    int8 kernel checks b against its own limit, ``quantized.MAX_BATCH``,
+    and refuses a batch past it."""
     assert kernel.MAX_BATCH == 2 ** 31 - 1
     kernel.check_matrix_shapes(_wide(kernel.MAX_BATCH), _wide(3), "dot")
-    big = _wide(kernel.TILED_MAX_BATCH + 1)
-    kernel.check_matrix_shapes(big, _wide(3), "dot")
-    kernel.check_pairs_shapes(_wide(kernel.TILED_MAX_BATCH), _wide(3), "dot")
+    codes, scale = torch.zeros((3, 4), dtype=torch.int8), torch.zeros(3)
+    quantized.check_shapes(_wide(quantized.MAX_BATCH), codes, scale, "dot")
     with pytest.raises(ValueError, match="range"):
-        kernel.check_pairs_shapes(big, _wide(3), "dot")
+        quantized.check_shapes(_wide(quantized.MAX_BATCH + 1), codes, scale,
+                               "dot")
 
 
 def test_wrapper_checks_the_device_before_the_shapes():
