@@ -25,8 +25,16 @@ answers filtered batched queries at the paper's selectivities through
 the host), and checks the answers: each batched engine against the port's
 single-query search, bit for bit, and against the same search run on CPU
 copies through the plain versions; the single-query searches are timed
-one by one and two of them profiled (``[single]``). Each phase prints one
-line or two; a failed
+one by one and two of them profiled (``[single]``). Then it lays the Wiki
+graph's schema (``make_wiki_like``, the paper's Figure 7a) over the same 1M
+rows as table ``Chunk``, registers the f32 index and its int8 sibling in one
+``NavixDB`` and runs the paper's query as the paper poses it, through
+``NavixDB.execute``: uncorrelated, person-chunk (positively and negatively
+correlated) and two-hop plans, each checked against an oracle mask, the
+unregistered handle's ``search_many``, the program cache's counts, the vmap
+engine, a mixed-plan batch and the int8 entry (``[db]``); and the Section
+5.7 postfilter baseline against its CPU copy (``[postfilter]``). Each phase
+prints one line or two; a failed
 phase raises, so the script exits non-zero and prints no ``ok`` line. The
 last three lines are the card's name and power limit, a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": ...}``.
@@ -55,13 +63,18 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # the port itself: without the repository around this file these imports
 # fail, before anything is printed
+from repro_torch.api import NavixDB  # noqa: E402
 from repro_torch.configs.navix_paper import (PAPER_INDEX,  # noqa: E402
                                              SELECTIVITIES)
 from repro_torch.core.graph import check_symmetric_fraction  # noqa: E402
 from repro_torch.core.navix import NavixIndex  # noqa: E402
 from repro_torch.core.quantize import QuantizedStore, quantize  # noqa: E402
-from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
-from repro_torch.storage.columnar import ExactTier  # noqa: E402
+from repro_torch.data.synthetic import (WikiLike,  # noqa: E402
+                                        correlation_ratio, gaussian_mixture,
+                                        make_queries, person_chunk_plan,
+                                        two_hop_plan, uncorrelated_plan)
+from repro_torch.query.operators import KnnSearch  # noqa: E402
+from repro_torch.storage.columnar import ExactTier, GraphStore  # noqa: E402
 from repro_torch.config.base import get_arch  # noqa: E402
 from repro_torch.core import build as build_module  # noqa: E402
 from repro_torch.kernels import (_build, distance_matrix,  # noqa: E402
@@ -141,6 +154,25 @@ TABLE_REPS = 20
 SPIN_CYCLES_PER_CALL = 400_000
 # a 4-byte scale at a random address costs one 32-byte sector
 SECTOR_BYTES = 32
+# the Wiki graph's schema (make_wiki_like, the paper's Figure 7a) laid over
+# the index's rows: rows of the first PERSON_CLUSTERS mixture clusters (about
+# 10%) are person chunks, owned 6 a person; the rest resource chunks, owned 3
+# a resource; each person has 4 WikiLinks to resources
+PERSON_CLUSTERS = 100
+CHUNKS_PER_PERSON, CHUNKS_PER_RESOURCE, LINKS_PER_PERSON = 6, 3, 4
+BIRTH_DAYS = 36500
+WIKI_SEED = 3
+# the [db] plans: uncorrelated_plan at these sigma, person_chunk_plan at these
+# person-sigma (with person and with nonperson queries), two_hop_plan at one
+DB_SIGMAS = (0.5, 0.1, 0.01)
+DB_PERSON_SIGMAS = (0.5, 0.1)
+DB_TWO_HOP_SIGMA = 0.1
+CE_QUERIES = 64             # queries a plan's correlation ratio is taken on
+VMAP_LANES = 4
+BUCKET_BATCHES = (17, 19, 23)   # one power-of-two bucket (32)
+# [postfilter]: this many queries at each sigma of the uncorrelated plans
+POSTFILTER_SIGMAS = (0.5, 0.1)
+POSTFILTER_QUERIES = 2
 F32_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
 INT8_SOURCE = "src/repro_torch/kernels/csrc/quantized_gather_distance.cu"
 TPU_KERNELS = "src/repro/kernels/gather_distance.py"
@@ -1186,11 +1218,13 @@ def _profile_request(step, params, batch) -> None:
 
 
 def make_data(n: int):
-    X, _, centers = gaussian_mixture(n, DIM, N_CLUSTERS, seed=0)
+    """The mixture's rows, cluster labels and centers, and the run's
+    uncorrelated queries."""
+    X, labels, centers = gaussian_mixture(n, DIM, N_CLUSTERS, seed=0)
     rng = np.random.default_rng(1)
     base = centers[rng.integers(0, len(centers), size=N_QUERIES)]
     Q = (base + 0.3 * rng.normal(size=base.shape)).astype(np.float32)
-    return X, Q
+    return X, labels, centers, Q
 
 
 def phase_build(X: np.ndarray):
@@ -1508,7 +1542,9 @@ def _profile_single(search_one, q, mask, int8: bool) -> tuple:
 
 
 def phase_parity(idx, qidx, Q: np.ndarray, masks, f32_sweep: dict,
-                 int8_sweep: dict) -> None:
+                 int8_sweep: dict):
+    """Returns the f32 index's CPU copy (the [postfilter] phase reuses
+    it)."""
     t_phase = time.perf_counter()
     Qp = Q[:PARITY_LANES]
     cpu = torch.device("cpu")
@@ -1517,7 +1553,6 @@ def phase_parity(idx, qidx, Q: np.ndarray, masks, f32_sweep: dict,
         "f32", gather_distance, idx.search, idx.search_many,
         cpu_idx.search_many, Qp, masks,
         {s: r[0] for s, r in f32_sweep.items()})}
-    del cpu_idx
     # the CPU copy keeps the host exact tier; only the graph moves
     cpu_q = dataclasses.replace(qidx, graph=qidx.graph.to(cpu),
                                 quantized=None)
@@ -1562,6 +1597,306 @@ def phase_parity(idx, qidx, Q: np.ndarray, masks, f32_sweep: dict,
           + f" | plain path on CPU copies {cpu_s:.3f}s of the phase's "
           f"{phase_s:.3f}s ({100 * cpu_s / phase_s:.1f}%), the two "
           f"profiled searches {prof_s:.3f}s", flush=True)
+    return cpu_idx
+
+
+class _RowsOnCard:
+    """The index's f32 rows on the card, read the way ``make_queries`` reads
+    ``WikiLike.embeddings`` (its shape; the rows at some ids, copied to the
+    host), so no second host copy of the 1M rows is made."""
+
+    def __init__(self, vectors: torch.Tensor):
+        self.vectors = vectors
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.vectors.shape)
+
+    def __getitem__(self, ids) -> np.ndarray:
+        rows = torch.as_tensor(ids, device=self.vectors.device)
+        return self.vectors[rows].cpu().numpy()
+
+
+def make_wiki(idx, labels: np.ndarray, centers: np.ndarray):
+    """The Wiki graph's schema laid over the index's rows as table
+    ``Chunk`` (numpy, from ``WIKI_SEED``). Returns the ``WikiLike`` (its
+    embeddings read from the card) and the generator's own arrays, from
+    which :func:`oracle_mask` computes each plan's selection."""
+    rng = np.random.default_rng(WIKI_SEED)
+    n = len(labels)
+    is_person = labels < PERSON_CLUSTERS
+    p_rows = rng.permutation(np.flatnonzero(is_person))
+    r_rows = rng.permutation(np.flatnonzero(~is_person))
+    p_owner = np.arange(len(p_rows)) // CHUNKS_PER_PERSON
+    r_owner = np.arange(len(r_rows)) // CHUNKS_PER_RESOURCE
+    n_person, n_resource = int(p_owner[-1]) + 1, int(r_owner[-1]) + 1
+    arrays = {"cid": rng.permutation(n),
+              "birth": rng.integers(0, BIRTH_DAYS, size=n_person),
+              "person_of": np.full(n, -1), "resource_of": np.full(n, -1),
+              "wl_src": np.repeat(np.arange(n_person), LINKS_PER_PERSON)}
+    arrays["person_of"][p_rows] = p_owner
+    arrays["resource_of"][r_rows] = r_owner
+    arrays["wl_dst"] = rng.integers(0, n_resource, size=n_person
+                                    * LINKS_PER_PERSON)
+    store = GraphStore()
+    store.add_node_table("Person", n_person, {
+        "pID": np.arange(n_person), "birth_date": arrays["birth"]})
+    store.add_node_table("Resource", n_resource,
+                         {"rID": np.arange(n_resource)})
+    store.add_node_table("Chunk", n, {"cID": arrays["cid"],
+                                      "is_person": is_person})
+    store.add_rel_table("PersonChunk", "Person", "Chunk", p_owner, p_rows)
+    store.add_rel_table("ResourceChunk", "Resource", "Chunk", r_owner,
+                        r_rows)
+    store.add_rel_table("WikiLink", "Person", "Resource", arrays["wl_src"],
+                        arrays["wl_dst"])
+    wiki = WikiLike(store=store, embeddings=_RowsOnCard(idx.graph.vectors),
+                    chunk_is_person=is_person,
+                    person_centers=centers[:PERSON_CLUSTERS],
+                    resource_centers=centers[PERSON_CLUSTERS:],
+                    seed=WIKI_SEED)
+    return wiki, arrays
+
+
+def oracle_mask(kind: str, sigma: float, a: dict) -> np.ndarray:
+    """A plan's selected chunks from the generator's arrays, without the
+    store's CSR or the plan operators."""
+    if kind == "uncorrelated":
+        return a["cid"] < int(len(a["cid"]) * sigma)
+    persons = np.flatnonzero(a["birth"] < int(BIRTH_DAYS * sigma))
+    if kind == "person":
+        return np.isin(a["person_of"], persons)
+    linked = np.unique(a["wl_dst"][np.isin(a["wl_src"], persons)])
+    return np.isin(a["resource_of"], linked)
+
+
+#: the kernels on the db and postfilter paths (1-4)
+GATHER_KERNELS = ("gather_distance_batch", "gather_distance",
+                  "quantized_gather_distance_batch",
+                  "quantized_gather_distance")
+
+
+def counted(fn, *args, **kwargs):
+    """``fn(...)`` and the launches it made of each kernel of the db path
+    (the other kernels' launches must not grow)."""
+    before = launch_counts()
+    out = fn(*args, **kwargs)
+    after = launch_counts()
+    check(all(after[k] == before[k] for k in after if k not in
+              GATHER_KERNELS), f"{fn.__name__} launched an all-pairs or "
+          f"segment-sum kernel")
+    return out, {k: after[k] - before[k] for k in GATHER_KERNELS}
+
+
+def _add(total: dict, launched: dict) -> None:
+    for k, v in launched.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _same_rs(a, b, what: str, a_lanes=..., b_lanes=...) -> None:
+    """Lanes ``a_lanes`` of result ``a`` equal lanes ``b_lanes`` of ``b``
+    (a ResultSet or a SearchResult each): ids, dists and every stat, bit
+    for bit."""
+    def lanes(res, field, sel):
+        x = getattr(res.stats, field) if field in res.stats._fields \
+            else getattr(res, field)
+        return (x.cpu().numpy() if isinstance(x, torch.Tensor) else x)[sel]
+    fields = ("ids", "dists", *a.stats._fields)
+    check(all(np.array_equal(lanes(a, f, a_lanes), lanes(b, f, b_lanes))
+              for f in fields), f"{what}: results differ")
+
+
+def _true_ids(idx, Q: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+    return torch.cat([idx.brute_force(Q[i:i + 256], k=K, semimask=mask)[1]
+                      for i in range(0, len(Q), 256)])
+
+
+def phase_db(idx, qidx, labels: np.ndarray, centers: np.ndarray,
+             Q: np.ndarray) -> dict:
+    """The paper's query through ``NavixDB.execute`` over the Wiki-shaped
+    store. Returns each plan's mask and brute-force ids by name, and the
+    launches each entry's executes made."""
+    t_phase = time.perf_counter()
+    wiki, arrays = make_wiki(idx, labels, centers)
+    n = len(labels)
+    queries = {"uncorrelated": Q,
+               "person": make_queries(wiki, N_QUERIES, "person", seed=11),
+               "nonperson": make_queries(wiki, N_QUERIES, "nonperson",
+                                         seed=12)}
+    db = NavixDB(wiki.store)
+    db.register_index("gist", idx, table="Chunk")
+    db.register_index("gist_int8", qidx, table="Chunk")
+    plain = NavixIndex(graph=idx.graph, config=idx.config)   # unregistered
+    plans = [(f"uncorrelated {s}", "uncorrelated", s, "uncorrelated",
+              uncorrelated_plan(s, n)) for s in DB_SIGMAS]
+    plans += [(f"person_chunk {s} {mode}", "person", s, mode,
+               person_chunk_plan(wiki.store, s))
+              for s in DB_PERSON_SIGMAS for mode in ("person", "nonperson")]
+    plans.append((f"two_hop {DB_TWO_HOP_SIGMA}", "two_hop", DB_TWO_HOP_SIGMA,
+                  "uncorrelated", two_hop_plan(wiki.store, DB_TWO_HOP_SIGMA)))
+    launched = {"gist": {}, "gist_int8": {}}
+    out, lines = {}, []
+    for name, kind, sigma, mode, sel in plans:
+        mask = db.prefilter(sel).mask
+        check(np.array_equal(mask, oracle_mask(kind, sigma, arrays)),
+              f"[db] {name}: prefilter mask != the generator's oracle")
+        knn = KnnSearch(child=sel, k=K, efs=EFS, index="gist")
+        Qp = queries[mode]
+        t0 = time.perf_counter()
+        rs, made = counted(db.execute, knn, query=Qp)
+        wall = time.perf_counter() - t0
+        _add(launched["gist"], made)
+        check(np.array_equal(rs.mask, mask) and rs.ids.shape == (len(Qp), K),
+              f"[db] {name}: malformed result")
+        _same_rs(rs, plain.search_many(Qp, k=K, efs=EFS, semimask=mask),
+                 f"[db] {name}: execute vs unregistered search_many")
+        true_ids = _true_ids(idx, Qp, mask)
+        rec = idx.recall(rs.ids, true_ids)
+        ce = correlation_ratio(idx.graph.vectors, Qp[:CE_QUERIES], mask, k=K,
+                               metric=idx.config.metric)
+        t = rs.timings
+        lines.append(
+            f"[db] {name} ({mode} queries): sigma {rs.sigma:.5f}, ce "
+            f"{ce:.3f}, QPS {len(Qp) / wall:.1f} ({wall:.3f}s for B="
+            f"{len(Qp)}), recall@{K} {rec:.4f}; ms: prefilter "
+            f"{t.prefilter_ms:.3f}, pack {t.pack_ms:.3f}, search "
+            f"{t.search_ms:.3f}, rerank {t.rerank_ms:.3f}, project "
+            f"{t.project_ms:.3f}, total {t.total_ms:.3f}")
+        print(lines[-1], flush=True)
+        out[name] = {"mask": mask, "true_ids": true_ids, "rs": rs,
+                     "queries": Qp, "sel": sel}
+
+    base = out[f"uncorrelated {DB_SIGMAS[1]}"]
+    knn = KnnSearch(child=base["sel"], k=K, efs=EFS, index="gist")
+    # re-executing a plan adds a hit and no entry, and changes no bit
+    info = db.programs.info()
+    t0 = time.perf_counter()
+    rs, made = counted(db.execute, knn, query=Q)
+    again_s = time.perf_counter() - t0
+    _add(launched["gist"], made)
+    after = db.programs.info()
+    check(after["hits"] == info["hits"] + 1
+          and after["programs"] == info["programs"],
+          f"[db] re-execute made an entry ({info} -> {after})")
+    _same_rs(rs, base["rs"], "[db] re-execute vs the first execute")
+    # B = 17, 19, 23 share one bucket: one entry, and padding (and the
+    # schedule a padded batch launches on) changes no lane
+    entries = len(db.programs)
+    for b in BUCKET_BATCHES:
+        rs, made = counted(db.execute, knn, query=Q[:b])
+        _add(launched["gist"], made)
+        _same_rs(rs, base["rs"], f"[db] B={b} vs B={N_QUERIES}",
+                 b_lanes=slice(0, b))
+    check(len(db.programs) == entries + 1,
+          f"[db] B={BUCKET_BATCHES} made {len(db.programs) - entries} "
+          f"entries, not 1")
+    # the vmap engine (one single-query search a lane) and a single query
+    rs, made = counted(db.execute, knn, query=Q[:VMAP_LANES], engine="vmap")
+    _add(launched["gist"], made)
+    _same_rs(rs, base["rs"], "[db] engine='vmap' vs the batched lanes",
+             b_lanes=slice(0, VMAP_LANES))
+    rs, made = counted(db.execute, knn, query=Q[0])
+    _add(launched["gist"], made)
+    _same_rs(rs, base["rs"], "[db] a single query vs lane 0", b_lanes=0)
+    # a mixed-plan batch: lane i searches plan i % 4's selection
+    mixed = (f"uncorrelated {DB_SIGMAS[1]}",
+             f"person_chunk {DB_PERSON_SIGMAS[0]} person",
+             f"person_chunk {DB_PERSON_SIGMAS[1]} nonperson",
+             f"two_hop {DB_TWO_HOP_SIGMA}")
+    lane_plan = [out[mixed[i % 4]] for i in range(N_QUERIES)]
+    Qm = np.stack([p["queries"][i] for i, p in enumerate(lane_plan)])
+    t0 = time.perf_counter()
+    rs_m, made = counted(db.execute, KnnSearch(k=K, efs=EFS, index="gist",
+                                               table="Chunk"),
+                         query=Qm, masks=[p["mask"] for p in lane_plan])
+    mixed_s = time.perf_counter() - t0
+    _add(launched["gist"], made)
+    for j, name in enumerate(mixed):
+        lanes = slice(j, None, 4)
+        _same_rs(rs_m, out[name]["rs"], f"[db] masks= lanes of {name}",
+                 lanes, lanes)
+    # the int8 entry: the beam on the codes, then the host's exact re-rank
+    qknn = KnnSearch(child=base["sel"], k=K, efs=EFS, index="gist_int8")
+    rs_q, made = counted(db.execute, qknn, query=Q)
+    _add(launched["gist_int8"], made)
+    unreg_q = dataclasses.replace(qidx, program_cache=None)
+    _same_rs(rs_q, unreg_q.search_quantized_many(Q, k=K, efs=EFS,
+                                                 semimask=base["mask"]),
+             "[db] int8 execute vs search_quantized_many")
+    rs_q1, made = counted(db.execute, qknn, query=Q[0])
+    _add(launched["gist_int8"], made)
+    _same_rs(rs_q1, rs_q, "[db] an int8 single query vs lane 0", b_lanes=0)
+    rec_q = idx.recall(rs_q.ids, base["true_ids"])
+    f32, int8 = launched["gist"], launched["gist_int8"]
+    check(f32["gather_distance_batch"] > 0 and f32["gather_distance"] > 0
+          and f32["quantized_gather_distance_batch"] == 0
+          and f32["quantized_gather_distance"] == 0,
+          f"[db] the f32 entry's launches: {f32}")
+    check(int8["quantized_gather_distance_batch"] > 0
+          and int8["quantized_gather_distance"] > 0
+          and int8["gather_distance_batch"] == 0
+          and int8["gather_distance"] == 0,
+          f"[db] the int8 entry's launches: {int8}")
+    t = rs_q.timings
+    print(f"[db] checks: every prefilter mask == the generator's oracle; "
+          f"execute == unregistered search_many, bit for bit, on all "
+          f"{len(plans)} plans; re-executing uncorrelated {DB_SIGMAS[1]} "
+          f"adds a hit and no entry ({again_s:.3f}s, QPS "
+          f"{N_QUERIES / again_s:.1f}); B="
+          f"{BUCKET_BATCHES} one entry, equal to the B={N_QUERIES} lanes; "
+          f"engine='vmap' on {VMAP_LANES} lanes and a single query == the "
+          f"batched lanes; a masks= batch of {N_QUERIES} lanes from "
+          f"{len(mixed)} plans == each plan's own execute lane for lane "
+          f"({mixed_s:.3f}s, pack {rs_m.timings.pack_ms:.1f} ms); int8 entry "
+          f"== search_quantized_many (uncorrelated {DB_SIGMAS[1]}: recall@{K}"
+          f" {rec_q:.4f}, search {t.search_ms:.1f} ms, rerank "
+          f"{t.rerank_ms:.1f} ms) and its single query == lane 0; cache "
+          f"{db.programs.info()}", flush=True)
+    print(f"[db] launches by entry: f32 {f32}; int8 {int8}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    launched["plans"] = out
+    return launched
+
+
+def phase_postfilter(idx, cpu_idx, Q: np.ndarray, plans: dict) -> dict:
+    """The Section 5.7 baseline for ``POSTFILTER_QUERIES`` queries at each
+    sigma of ``POSTFILTER_SIGMAS``, on the card and on the CPU copy: ids
+    and ``PostfilterStats`` equal. Returns its launches."""
+    launched, parts = {}, []
+    for sigma in POSTFILTER_SIGMAS:
+        plan = plans[f"uncorrelated {sigma}"]
+        for i in range(POSTFILTER_QUERIES):
+            sync()
+            t0 = time.perf_counter()
+            (d, ids, st), made = counted(idx.search_postfilter, Q[i], k=K,
+                                         semimask=plan["mask"])
+            sync()
+            wall = time.perf_counter() - t0
+            _add(launched, made)
+            t0 = time.perf_counter()
+            d_c, ids_c, st_c = cpu_idx.search_postfilter(
+                Q[i], k=K, semimask=plan["mask"])
+            cpu_wall = time.perf_counter() - t0
+            check(np.array_equal(ids, ids_c) and st == st_c
+                  and np.allclose(d, d_c, rtol=1e-5, atol=0.0),
+                  f"[postfilter] sigma={sigma} query {i}: card {st} != CPU "
+                  f"copy {st_c}")
+            check(plan["mask"][ids[ids >= 0]].all(),
+                  f"[postfilter] sigma={sigma} query {i}: a survivor not "
+                  f"in S")
+            rec = idx.recall(ids, plan["true_ids"][i])
+            parts.append(f"sigma={sigma} q{i}: restarts {st.restarts}, "
+                         f"final_efs {st.final_efs}, verifications "
+                         f"{st.verifications}, t_dc {st.t_dc}, wall {wall:.3f}s"
+                         f" (CPU copy {cpu_wall:.3f}s), recall@{K} {rec:.4f}")
+    check(launched["gather_distance"] > 0
+          and all(launched[k] == 0 for k in GATHER_KERNELS
+                  if k != "gather_distance"),
+          f"[postfilter] launches: {launched}")
+    print("[postfilter] == its CPU copy (ids, PostfilterStats): "
+          + "; ".join(parts) + f"; one-lane gather_distance launches "
+          f"{launched['gather_distance']}", flush=True)
+    return launched
 
 
 def main() -> int:
@@ -1595,7 +1930,7 @@ def main() -> int:
     kernels["distance_matrix"]["launches"] = timed("recsys", phase_recsys)
     torch.cuda.empty_cache()
 
-    X, Q = timed("data", make_data, N)
+    X, labels, centers, Q = timed("data", make_data, N)
     print(f"[data] gaussian_mixture({N:,}, {DIM}, {N_CLUSTERS}, seed=0) and "
           f"{N_QUERIES} queries on the host: {seconds['data']:.1f}s",
           flush=True)
@@ -1633,10 +1968,23 @@ def main() -> int:
         counts["quantized_gather_distance_batch"]
 
     reset_counts()                                     # single-query oracle
-    timed("parity", phase_parity, idx, qidx, Q, masks, f32, int8)
+    cpu_idx = timed("parity", phase_parity, idx, qidx, Q, masks, f32, int8)
     counts = launch_counts()
     for name in ("gather_distance", "quantized_gather_distance"):
         kernels[name]["launches"] = counts[name]
+
+    reset_counts()                                     # the database path
+    db = timed("db", phase_db, idx, qidx, labels, centers, Q)
+    db_read = launch_counts()
+    reset_counts()                                     # the postfilter path
+    pf = timed("postfilter", phase_postfilter, idx, cpu_idx, Q, db["plans"])
+    pf_read = launch_counts()
+    # the executes' launches (the phase also launched to compare)
+    db_path = {n: db["gist"][n] + db["gist_int8"][n] for n in GATHER_KERNELS}
+    check(all(db_read[n] >= db_path[n] for n in GATHER_KERNELS)
+          and all(pf_read[n] == pf[n] for n in GATHER_KERNELS),
+          f"the counters disagree: db {db_read} vs {db_path}, postfilter "
+          f"{pf_read} vs {pf}")
     print(f"[launches] distance_matrix: "
           f"{kernels['distance_matrix']['launches']} on its streaming path in "
           f"the recsys requests, "
@@ -1659,6 +2007,17 @@ def main() -> int:
           f"in the single-query searches of the parity phase "
           f"({len(PARITY_SIGMAS) * PARITY_LANES} an arm and one profiled), "
           f"all spread", flush=True)
+    print(f"[launches] the db path (NavixDB.execute, the f32 and the int8 "
+          f"entry) and the postfilter path: gather_distance_batch "
+          f"{db['gist']['gather_distance_batch']}, gather_distance "
+          f"{db['gist']['gather_distance']} + {pf['gather_distance']} "
+          f"(postfilter), quantized_gather_distance_batch "
+          f"{db['gist_int8']['quantized_gather_distance_batch']}, "
+          f"quantized_gather_distance "
+          f"{db['gist_int8']['quantized_gather_distance']}; the JSON line's "
+          f"launches add them to the paths above", flush=True)
+    for name in GATHER_KERNELS:
+        kernels[name]["launches"] += db_path[name] + pf[name]
     for name, entry in kernels.items():
         check(entry.get("launches", 0) > 0,
               f"{name}: launched no time on its path")

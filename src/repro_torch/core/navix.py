@@ -11,6 +11,11 @@ run where the index lives; queries and semimasks are moved there. An
 int8-resident index (paper Section 5.8) keeps codes + scales on the device
 and its f32 rows in a host :class:`ExactTier`, which re-ranks the final
 beam exactly.
+
+The primary public API is ``repro_torch.api.NavixDB``; ``NavixIndex`` is
+the compatibility layer underneath it. Indexes registered in a ``NavixDB``
+catalog share its program cache (``program_cache``), so this API's
+searches are counted there too.
 """
 
 from __future__ import annotations
@@ -28,9 +33,10 @@ from repro_torch.core.distances import (brute_force_topk, normalize,
                                         validate_metric)
 from repro_torch.core.graph import HnswGraph
 from repro_torch.core.heuristics import Heuristic
+from repro_torch.core.postfilter import postfilter_search
 from repro_torch.core.quantize import QuantizedStore, dequantize, quantize
 from repro_torch.core.search import SearchParams, SearchResult, search
-from repro_torch.core.search_batch import search_many
+from repro_torch.core.search_batch import resolve_engine
 from repro_torch.storage.columnar import ExactTier
 
 
@@ -56,6 +62,9 @@ class NavixIndex:
     # exact f32 tier (host / memmap) paired with a quantized-resident graph;
     # finalizes quantized searches by re-ranking the final beam exactly
     exact: Optional[ExactTier] = None
+    # set when the index is registered in a NavixDB catalog; routes search
+    # through the shared program cache (repro_torch.api.plan_compile)
+    program_cache: Optional[object] = None
     # lazily built quantized sibling of an f32 index (search_quantized on
     # an f32 index); never part of the persisted state
     _qview: Optional["NavixIndex"] = dataclasses.field(
@@ -115,6 +124,8 @@ class NavixIndex:
         if self._qview is None:
             self._qview = self.quantize_resident()
             self.quantized = self._qview.quantized
+        # the sibling always follows this index's current catalog cache
+        self._qview.program_cache = self.program_cache
         return self._qview
 
     # -- semimasks ----------------------------------------------------------
@@ -172,6 +183,20 @@ class NavixIndex:
         return SearchParams(k=k, efs=max(efs, k), heuristic=int(h),
                             metric=self.config.metric)
 
+    def _single(self):
+        """The single-query entry: the catalog's program cache when the
+        index is registered in a ``NavixDB``, else the search itself."""
+        if self.program_cache is not None:     # (an empty cache is falsy)
+            return self.program_cache.search
+        return search
+
+    def _batch(self, engine: str):
+        """The batch entry for a (validated) engine name, through the
+        catalog's program cache when there is one."""
+        if self.program_cache is not None:
+            return self.program_cache.batch(engine)
+        return resolve_engine(engine)
+
     def _prep_query(self, q) -> torch.Tensor:
         q = torch.as_tensor(q, dtype=torch.float32).to(self.device)
         if self.config.metric == "cos":
@@ -186,23 +211,29 @@ class NavixIndex:
                else self.pack_semimask(semimask))
         if sigma_g is None:
             sigma_g = self.sigma(sel)
-        return search(self.graph, self._prep_query(q), sel,
-                      self._params(k, efs, heuristic), sigma_g=sigma_g)
+        return self._single()(self.graph, self._prep_query(q), sel,
+                              self._params(k, efs, heuristic), sigma_g)
 
     def search_many(self, Q, k: int = 100, efs: int = 0, semimask=None,
-                    heuristic="adaptive_local") -> SearchResult:
-        """Batched search through the batched-frontier engine.
+                    heuristic="adaptive_local",
+                    engine: str = "batched") -> SearchResult:
+        """Batched search -- the serving-throughput path.
+
+        ``engine="batched"`` (default) runs the batched-frontier engine
+        (``repro_torch.core.search_batch``); ``engine="vmap"`` runs the
+        single-query search once a lane, the reference oracle. Both return
+        lane-for-lane identical results.
 
         ``semimask`` may be one shared mask (bool[n] / uint32[W]) or a
         per-lane stack (bool[B, n], a list of B masks, or uint32[B, W]), in
         which case lane b searches its own selected set.
         """
+        run = self._batch(engine)
         efs = efs or 2 * k
         sel = (self.full_semimask() if semimask is None
                else self.pack_semimask(semimask))
-        return search_many(self.graph, self._prep_query(Q), sel,
-                           self._params(k, efs, heuristic),
-                           sigma_g=self.sigma(sel))
+        return run(self.graph, self._prep_query(Q), sel,
+                   self._params(k, efs, heuristic), self.sigma(sel))
 
     def search_quantized(self, q, k: int = 100, efs: int = 0, semimask=None,
                          heuristic="adaptive_local") -> SearchResult:
@@ -221,27 +252,28 @@ class NavixIndex:
                else qidx.pack_semimask(semimask))
         qv = self._prep_query(q)
         # full-beam params (k == efs): the exact tier does the final cut
-        res = search(qidx.graph, qv, sel, self._params(efs, efs, heuristic),
-                     sigma_g=qidx.sigma(sel))
+        res = qidx._single()(qidx.graph, qv, sel,
+                             self._params(efs, efs, heuristic),
+                             qidx.sigma(sel))
         return self._reranked(qidx.exact.rerank(_host(qv), _host(res.ids),
                                                 k), res.stats)
 
     def search_quantized_many(self, Q, k: int = 100, efs: int = 0,
-                              semimask=None, heuristic="adaptive_local"
-                              ) -> SearchResult:
+                              semimask=None, heuristic="adaptive_local",
+                              engine: str = "batched") -> SearchResult:
         """Batched DiskANN-regime search: the int8-resident store under the
         batched-frontier engine, then a lane-vectorized exact re-rank
         against the f32 tier. Lane for lane equal to
         :meth:`search_quantized` (``semimask`` takes the shared and
         per-lane forms of :meth:`search_many`)."""
         qidx = self._quantized_view()
+        run = qidx._batch(engine)
         efs = max(efs or 2 * k, k)
         sel = (qidx.full_semimask() if semimask is None
                else qidx.pack_semimask(semimask))
         Qp = self._prep_query(Q)
-        res = search_many(qidx.graph, Qp, sel,
-                          self._params(efs, efs, heuristic),
-                          sigma_g=qidx.sigma(sel))
+        res = run(qidx.graph, Qp, sel, self._params(efs, efs, heuristic),
+                  qidx.sigma(sel))
         return self._reranked(qidx.exact.rerank_many(_host(Qp),
                                                      _host(res.ids), k),
                               res.stats)
@@ -254,6 +286,15 @@ class NavixIndex:
         return SearchResult(dists=torch.from_numpy(d).to(self.device),
                             ids=torch.from_numpy(ids).to(self.device),
                             stats=stats)
+
+    def search_postfilter(self, q, k: int = 100, semimask=None):
+        """The Section 5.7 postfilter baseline for one query: (dists[k],
+        ids[k], PostfilterStats), numpy (see
+        :func:`repro_torch.core.postfilter.postfilter_search`)."""
+        sel = (self.full_semimask() if semimask is None
+               else self.pack_semimask(semimask))
+        return postfilter_search(self.graph, self._prep_query(q), sel, k,
+                                 metric=self.config.metric)
 
     # -- oracles ------------------------------------------------------------
     def brute_force(self, Q, k: int = 100, semimask=None):

@@ -321,3 +321,27 @@ def search(graph: HnswGraph, q: torch.Tensor, sel_bits: torch.Tensor,
     return SearchResult(dists=beam_d[:k], ids=beam_id[:k],
                         stats=stats._replace(
                             upper_dc=(upper_dc + 1).to(torch.int32)))
+
+
+def search_batch(graph: HnswGraph, Q: torch.Tensor, sel_bits: torch.Tensor,
+                 params: SearchParams, sigma_g=None) -> SearchResult:
+    """The vmap engine: one :func:`search` a lane, kept as the reference
+    oracle for the batched-frontier engine
+    (``repro_torch.core.search_batch.search_many``).
+
+    ``sel_bits`` may be one shared ``[W]`` semimask or a per-lane
+    ``[B, W]`` stack, and ``sigma_g`` a scalar or a per-lane ``[B]``.
+    Results and stats are stacked to the batched engine's per-lane shapes
+    and dtypes (``dists`` f32[B, k], ``ids`` int32[B, k], each stat
+    int32[B], ``picks`` int32[B, 3]).
+    """
+    per_lane_sigma = sigma_g is not None and torch.as_tensor(sigma_g).ndim == 1
+    lanes = [search(graph, Q[i], sel_bits[i] if sel_bits.ndim == 2
+                    else sel_bits, params,
+                    sigma_g=sigma_g[i] if per_lane_sigma else sigma_g)
+             for i in range(Q.shape[0])]
+    return SearchResult(
+        dists=torch.stack([r.dists for r in lanes]),
+        ids=torch.stack([r.ids for r in lanes]),
+        stats=SearchStats(*(torch.stack(f)
+                            for f in zip(*(r.stats for r in lanes)))))

@@ -45,7 +45,7 @@ from repro_torch.core.graph import HnswGraph
 from repro_torch.core.heuristics import Heuristic, adaptive_rule
 from repro_torch.core.quantize import QuantizedStore
 from repro_torch.core.search import (SearchParams, SearchResult, SearchStats,
-                                     _dedupe_keep_first)
+                                     _dedupe_keep_first, search_batch)
 from repro_torch.kernels import ops
 
 #: loop iterations between two reads of the batch's liveness
@@ -409,3 +409,17 @@ def search_many(graph: HnswGraph, Q: torch.Tensor, sel_bits: torch.Tensor,
                          f"{sel_bits.device}, but the graph is on "
                          f"{graph.device}")
     return search_lanes(graph, Q, sel_bits, params, sigma_g=sigma_g)
+
+
+#: the multi-row execution engines (name -> entry point): the one registry
+#: behind NavixIndex.search_many, NavixDB.execute and ProgramCache.batch
+BATCH_ENGINES = {"batched": search_many, "vmap": search_batch}
+
+
+def resolve_engine(engine: str):
+    """Validate an engine name and return its entry point."""
+    try:
+        return BATCH_ENGINES[engine]
+    except KeyError:
+        raise ValueError(f"unknown engine {engine!r}; valid: "
+                         f"{tuple(BATCH_ENGINES)}") from None

@@ -1,1 +1,2 @@
-"""Host-side storage tiers (counterpart of ``repro.storage``)."""
+"""Host-side storage: the columnar graph store and the exact f32 tier
+(counterpart of ``repro.storage``)."""

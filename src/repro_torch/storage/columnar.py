@@ -1,19 +1,51 @@
-"""Exact f32 re-rank tier (port of ``repro.storage.columnar.ExactTier``).
+"""Columnar graph store (port of ``repro.storage.columnar``).
 
-The port's own copy of the reference's host tier: the full-precision rows
-of an int8-resident index stay in host memory (numpy) or on disk
-(``np.memmap``), the "disk" side of the paper's Section 5.8 regime, and
-only the final beam's rows are read back to re-rank it exactly. It is
-numpy on purpose: the device holds codes, scales and the graph only.
-``NodeTable``, ``CSR`` and ``GraphStore`` of the reference module come
-with the API layer.
+The port's own copy of the reference module, the GDBMS substrate the index
+is native to (paper Section 2.3): node tables are columnar property
+vectors (:class:`NodeTable`); relationship tables are CSR structures,
+forward and backward (:class:`RelTable`); :class:`GraphStore` holds both.
+Selection subqueries (``repro_torch.query``) run against it and emit node
+semimasks. :class:`ExactTier` is the host f32 tier of an int8-resident
+index (paper Section 5.8).
+
+All of it is numpy on the host, as in the reference: the "disk" side of
+the system. Only the index (``repro_torch.core``) lives on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Mapping, Sequence
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class NodeTable:
+    name: str
+    n: int
+    columns: dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+
+    def add_column(self, name: str, values: np.ndarray) -> None:
+        values = np.asarray(values)
+        if values.shape[0] != self.n:
+            raise ValueError(f"column {name}: {values.shape[0]} rows != {self.n}")
+        self.columns[name] = values
+
+    def column(self, name: str) -> np.ndarray:
+        return self.columns[name]
+
+    def rows(self, ids: np.ndarray,
+             columns: Sequence[str] | None = None) -> dict[str, np.ndarray]:
+        """Gather property values at ``ids`` (projection after a kNN).
+
+        ``ids`` may carry -1 padding (unreachable result slots); padded
+        positions return the row-0 value -- callers mask on ``ids >= 0``.
+        """
+        ids = np.asarray(ids)
+        take = np.maximum(ids, 0)
+        names = list(columns) if columns is not None else list(self.columns)
+        return {c: self.columns[c][take] for c in names}
 
 
 @dataclasses.dataclass
@@ -117,3 +149,93 @@ class ExactTier:
         d, i = self.rerank_many(np.asarray(q)[None], np.asarray(ids)[None],
                                 k)
         return d[0], i[0]
+
+
+@dataclasses.dataclass
+class CSR:
+    offsets: np.ndarray      # int64[n_src + 1]
+    targets: np.ndarray      # int64[n_edges]
+
+    @property
+    def n_src(self) -> int:
+        return len(self.offsets) - 1
+
+    @property
+    def n_edges(self) -> int:
+        return len(self.targets)
+
+    def neighbors(self, u: int) -> np.ndarray:
+        return self.targets[self.offsets[u]:self.offsets[u + 1]]
+
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.offsets)
+
+
+def csr_from_edges(src: np.ndarray, dst: np.ndarray, n_src: int) -> CSR:
+    """CSR of an edge list; a source's targets keep their edge order (a
+    stable sort), so the layout equals the reference's."""
+    order = np.argsort(src, kind="stable")
+    src_s, dst_s = src[order], dst[order]
+    counts = np.bincount(src_s, minlength=n_src)
+    offsets = np.zeros(n_src + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    return CSR(offsets=offsets, targets=dst_s.astype(np.int64))
+
+
+@dataclasses.dataclass
+class RelTable:
+    name: str
+    src_table: str
+    dst_table: str
+    fwd: CSR                 # src -> dst
+    bwd: CSR                 # dst -> src
+
+    @property
+    def n_edges(self) -> int:
+        return self.fwd.n_edges
+
+
+@dataclasses.dataclass
+class GraphStore:
+    nodes: dict[str, NodeTable] = dataclasses.field(default_factory=dict)
+    rels: dict[str, RelTable] = dataclasses.field(default_factory=dict)
+
+    def add_node_table(self, name: str, n: int,
+                       columns: Mapping[str, np.ndarray] | None = None
+                       ) -> NodeTable:
+        t = NodeTable(name=name, n=n)
+        for cname, col in (columns or {}).items():
+            t.add_column(cname, col)
+        self.nodes[name] = t
+        return t
+
+    def add_rel_table(self, name: str, src_table: str, dst_table: str,
+                      src: np.ndarray, dst: np.ndarray) -> RelTable:
+        src = np.asarray(src, dtype=np.int64)
+        dst = np.asarray(dst, dtype=np.int64)
+        n_src = self.nodes[src_table].n
+        n_dst = self.nodes[dst_table].n
+        if src.size and (src.max() >= n_src or dst.max() >= n_dst):
+            raise ValueError(f"rel {name}: edge endpoint out of range")
+        rel = RelTable(name=name, src_table=src_table, dst_table=dst_table,
+                       fwd=csr_from_edges(src, dst, n_src),
+                       bwd=csr_from_edges(dst, src, n_dst))
+        self.rels[name] = rel
+        return rel
+
+    def add_vector_column(self, table: str, name: str,
+                          vectors: np.ndarray) -> None:
+        """Register an embedding column (f32[n, d]) on a node table; the
+        index catalog builds HNSW indexes over these (CREATE_HNSW_INDEX's
+        first argument pair)."""
+        vectors = np.asarray(vectors, dtype=np.float32)
+        if vectors.ndim != 2:
+            raise ValueError(f"vector column {name}: expected [n, d], "
+                             f"got shape {vectors.shape}")
+        self.nodes[table].add_column(name, vectors)
+
+    def node(self, name: str) -> NodeTable:
+        return self.nodes[name]
+
+    def rel(self, name: str) -> RelTable:
+        return self.rels[name]

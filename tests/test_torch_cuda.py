@@ -10,12 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.api import NavixDB, Q
 from repro_torch.core import search as tsearch
 from repro_torch.core import search_batch as tsb
 from repro_torch.core.navix import NavixConfig, NavixIndex
 from repro_torch.core.quantize import QuantizedStore, quantize
 from repro_torch.core.search import SearchParams
-from repro_torch.data.synthetic import gaussian_mixture
+from repro_torch.data.synthetic import (gaussian_mixture, make_queries,
+                                      make_wiki_like, uncorrelated_plan)
 from repro_torch.config.base import ShapeSpec, get_arch
 from repro_torch.kernels import (_build, distance_matrix, gather_distance, ops,
                                  quantized, quantized_gather_distance, ref,
@@ -444,3 +446,51 @@ def test_launch_error_message_comes_from_the_card(cuda):
     X = torch.randn((10, 8), device=cuda)
     with pytest.raises(ValueError, match="must be contiguous"):
         distance_matrix.distance_matrix(X[:2], X.T.contiguous().T, "dot")
+
+
+def _wiki_db_on_the_card(cuda):
+    """A small Wiki-like store and its chunk index built on the card
+    through ``NavixDB.create_index``."""
+    data = make_wiki_like(n_person=120, n_resource=300, d=32, seed=2)
+    db = NavixDB(data.store)
+    idx, _ = db.create_index("chunk_emb", "Chunk", vectors=data.embeddings,
+                             config=NavixConfig(m_u=8, ef_construction=48))
+    assert db.device.type == "cuda" and idx.device.type == "cuda"
+    return db, idx, data
+
+
+def test_execute_equals_search_many_at_a_padded_bucket(cuda):
+    """B = 17 pads to the 32-lane bucket: ids, dists and stats equal an
+    unregistered handle's unpadded ``search_many``, bit for bit, and a
+    B = 1024 batch (whose gather launches run tiled) lane for lane."""
+    db, idx, data = _wiki_db_on_the_card(cuda)
+    queries = make_queries(data, 1024, "person", seed=3)
+    plan = (Q.match("Person").where("birth_date", "range", lo=0, hi=20000)
+            .hop("PersonChunk").knn(k=10, efs=40))
+    rs = db.execute(plan, query=queries[:17])
+    assert db.programs.info()["programs"] == 1
+    plain = NavixIndex(graph=idx.graph, config=idx.config)
+    want = plain.search_many(queries[:17], k=10, efs=40, semimask=rs.mask)
+    big = plain.search_many(queries, k=10, efs=40, semimask=rs.mask)
+    for got in (want, big):
+        assert np.array_equal(rs.ids, got.ids[:17].cpu().numpy())
+        assert np.array_equal(rs.dists, got.dists[:17].cpu().numpy())
+        for f in got.stats._fields:
+            assert np.array_equal(getattr(rs.stats, f),
+                                  getattr(got.stats, f)[:17].cpu().numpy()), f
+    assert rs.timings.search_ms > 0 and rs.timings.pack_ms > 0
+
+
+def test_postfilter_on_the_card_equals_its_cpu_copy(cuda):
+    db, idx, data = _wiki_db_on_the_card(cuda)
+    mask = db.prefilter(uncorrelated_plan(0.1, data.n_chunks)).mask
+    q = make_queries(data, 1, "uncorrelated", seed=4)[0]
+    before = gather_distance.ONE_LANE_LAUNCHES
+    d, ids, stats = idx.search_postfilter(q, k=10, semimask=mask)
+    assert gather_distance.ONE_LANE_LAUNCHES > before
+    cpu = NavixIndex.from_graph(idx.graph, idx.config, device="cpu")
+    d_cpu, ids_cpu, stats_cpu = cpu.search_postfilter(q, k=10, semimask=mask)
+    assert np.array_equal(ids, ids_cpu) and stats == stats_cpu
+    torch.testing.assert_close(torch.from_numpy(d), torch.from_numpy(d_cpu),
+                               rtol=1e-5, atol=0.0)
+    assert mask[ids[ids >= 0]].all() and stats.restarts >= 1
