@@ -33,8 +33,12 @@ rows as table ``Chunk``, registers the f32 index and its int8 sibling in one
 correlated) and two-hop plans, each checked against an oracle mask, the
 unregistered handle's ``search_many``, the program cache's counts, the vmap
 engine, a mixed-plan batch and the int8 entry (``[db]``); and the Section
-5.7 postfilter baseline against its CPU copy (``[postfilter]``). Each phase
-prints one line or two; a failed
+5.7 postfilter baseline against its CPU copy (``[postfilter]``). Over the
+same database it serves requests of mixed plans and beam widths through the
+serving tier (``[serve]``): ``SearchEngine``'s continuous scheduler against
+its grouped one, bit for bit per request, and ``db.serve()``'s live service
+with client threads and expired deadlines, on the f32 and the int8 entry.
+Each phase prints one line or two; a failed
 phase raises, so the script exits non-zero and prints no ``ok`` line. The
 last three lines are the card's name and power limit, a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": ...}``.
@@ -51,6 +55,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -74,6 +79,7 @@ from repro_torch.data.synthetic import (WikiLike,  # noqa: E402
                                         make_queries, person_chunk_plan,
                                         two_hop_plan, uncorrelated_plan)
 from repro_torch.query.operators import KnnSearch  # noqa: E402
+from repro_torch.serving import SearchEngine  # noqa: E402
 from repro_torch.storage.columnar import ExactTier, GraphStore  # noqa: E402
 from repro_torch.config.base import get_arch  # noqa: E402
 from repro_torch.core import build as build_module  # noqa: E402
@@ -91,7 +97,7 @@ N_QUERIES = 1024
 K = 100
 EFS = 200
 BUILD_MORSEL = 2048          # the paper's morsel size
-PARITY_LANES = 32           # per sigma and per arm (f32, int8)
+PARITY_LANES = 16           # per sigma and per arm (f32, int8)
 PARITY_SIGMAS = (1.0, 0.1, 0.01)
 # kernel vs plain version: a different f32 summation order
 RTOL, ATOL = 1e-5, 1e-4
@@ -173,6 +179,23 @@ BUCKET_BATCHES = (17, 19, 23)   # one power-of-two bucket (32)
 # [postfilter]: this many queries at each sigma of the uncorrelated plans
 POSTFILTER_SIGMAS = (0.5, 0.1)
 POSTFILTER_QUERIES = 2
+# [serve]: the [db] plans the f32 requests cycle through (None: unfiltered),
+# each at both (k, efs); the serving engine's lanes and chunk
+SERVE_PLANS = ("uncorrelated 0.1", f"person_chunk {DB_PERSON_SIGMAS[0]} person",
+               f"two_hop {DB_TWO_HOP_SIGMA}", None)
+SERVE_SHAPES = ((K, EFS), (10, 100))
+SERVE_REQUESTS = 2048
+SERVE_MAX_BATCH = 1024
+SERVE_STEP_ITERS = 32
+# the live service: two client threads, of whose requests this many carry a
+# deadline already past; its lanes
+SERVICE_REQUESTS = 512
+SERVICE_EXPIRED = 64
+SERVICE_CLIENTS = 2
+SERVICE_MAX_BATCH = 512
+SERVICE_WAIT_S = 300.0
+# the int8 entry: requests over the first two plans of SERVE_PLANS
+SERVE_INT8_REQUESTS = 1024
 F32_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
 INT8_SOURCE = "src/repro_torch/kernels/csrc/quantized_gather_distance.cu"
 TPU_KERNELS = "src/repro/kernels/gather_distance.py"
@@ -1855,6 +1878,7 @@ def phase_db(idx, qidx, labels: np.ndarray, centers: np.ndarray,
     print(f"[db] launches by entry: f32 {f32}; int8 {int8}; phase "
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
     launched["plans"] = out
+    launched["db"] = db
     return launched
 
 
@@ -1896,6 +1920,204 @@ def phase_postfilter(idx, cpu_idx, Q: np.ndarray, plans: dict) -> dict:
     print("[postfilter] == its CPU copy (ids, PostfilterStats): "
           + "; ".join(parts) + f"; one-lane gather_distance launches "
           f"{launched['gather_distance']}", flush=True)
+    return launched
+
+
+def _serve_requests(plans: dict, n_req: int, plan_names, index: str):
+    """(query row, plan, k) of ``n_req`` requests: request j takes plan
+    ``j % (2 * len(plan_names))`` (each name at both SERVE_SHAPES) and its
+    plan's query row ``j // 2``."""
+    out = []
+    for j in range(n_req):
+        p = j % (2 * len(plan_names))
+        name = plan_names[p // 2]
+        k, efs = SERVE_SHAPES[p % 2]
+        sel = None if name is None else plans[name]["sel"]
+        rows = plans[name or "uncorrelated 0.1"]["queries"]
+        out.append((rows[(j // 2) % len(rows)],
+                    KnnSearch(child=sel, k=k, efs=efs, index=index,
+                              table=None if sel is not None else "Chunk"),
+                    k))
+    return out
+
+
+def _drain(eng: SearchEngine, reqs: list, hooks: list | None = None):
+    """Submit ``reqs`` to ``eng``, drain it; (responses by rid, wall s)."""
+    if hooks is not None:
+        eng.step_hook = lambda info: hooks.append(dict(info))
+    rids = [eng.submit(q, plan=plan, k=k) for q, plan, k in reqs]
+    sync()
+    t0 = time.perf_counter()
+    out = eng.drain()
+    wall = time.perf_counter() - t0
+    by = {r.rid: r for r in out}
+    check(len(out) == len(reqs) and sorted(by) == rids,
+          f"[serve] {eng.scheduler}: rids not answered exactly once")
+    return by, wall
+
+
+def _same_responses(a: dict, b: dict, what: str) -> None:
+    """Per rid: ids and dists bit for bit, sigma equal, both ``ok``."""
+    for rid, r in a.items():
+        o = b[rid]
+        check(np.array_equal(r.ids, o.ids) and np.array_equal(r.dists, o.dists)
+              and r.sigma == o.sigma and r.status == o.status == "ok",
+              f"[serve] {what}: rid {rid} differs")
+
+
+def _chunk_split(ch: dict) -> str:
+    return (f"chunks {ch['n_chunks']}: host gap {ch['host_gap_ms']:.1f} ms, "
+            f"dispatch {ch['dispatch_ms']:.1f} ms, host overlap "
+            f"{ch['host_overlap_ms']:.1f} ms, device wait "
+            f"{ch['device_wait_ms']:.1f} ms")
+
+
+def _serve_line(name: str, eng: SearchEngine, wall: float, n: int) -> str:
+    lat = eng.latency_summary()
+    ch = lat.get("chunks", {})
+    chunks = f"; {_chunk_split(ch)}" if ch else ""
+    return (f"{name}: {n} requests in {wall:.3f}s, QPS {n / wall:.1f}; "
+            f"latency ms p50 {lat['p50_ms']:.1f}, p95 {lat['p95_ms']:.1f}, "
+            f"p99 {lat['p99_ms']:.1f}{chunks}")
+
+
+def _refills(hooks: list) -> tuple[int, int]:
+    """(refills after the first admission, those made while other lanes
+    were live) from the step hook's progress dicts."""
+    total = live = 0
+    for prev, h in zip(hooks, hooks[1:]):
+        if h["pending"] < prev["pending"]:
+            total += 1
+            live += prev["live"] > 0
+    return total, live
+
+
+def phase_serve(db, plans: dict) -> dict:
+    """The serving tier over the [db] phase's database: the f32 entry
+    through the continuous and the grouped scheduler and the live service,
+    the int8 entry through both schedulers. Returns the launches each
+    entry's serving made."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    launched, lines = {"gist": {}, "gist_int8": {}}, []
+    reqs = _serve_requests(plans, SERVE_REQUESTS, SERVE_PLANS, "gist")
+
+    # f32, continuous: ragged beams, refills while other lanes are live
+    eng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
+                       step_iters=SERVE_STEP_ITERS)
+    hooks: list = []
+    (cont, wall), made = counted(_drain, eng, reqs, hooks)
+    _add(launched["gist"], made)
+    refills, refills_live = _refills(hooks)
+    check(refills_live > 0, "[serve] no refill while other lanes were live")
+    lines.append(_serve_line("f32 continuous", eng, wall, len(reqs))
+                 + f"; refills {refills} ({refills_live} while other lanes "
+                 f"were live)")
+    # f32, grouped: one execute a plan, equal per rid bit for bit
+    geng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH, scheduler="grouped")
+    (grp, wall), made = counted(_drain, geng, reqs)
+    _add(launched["gist"], made)
+    _same_responses(cont, grp, "continuous vs grouped (f32)")
+    lines.append(_serve_line("f32 grouped", geng, wall, len(reqs)))
+
+    # the live service: two client threads, SERVICE_EXPIRED requests past
+    # their deadline submitted before the loop starts (so the first tick
+    # expires them before any admission), the rest while it runs
+    svc = db.serve(index="gist", k_cap=K, efs_cap=EFS,
+                   max_batch=SERVICE_MAX_BATCH, step_iters=SERVE_STEP_ITERS,
+                   queue_size=2 * SERVICE_REQUESTS)
+    futs = {}
+    per_client = SERVICE_REQUESTS // SERVICE_CLIENTS
+    expired_each = SERVICE_EXPIRED // SERVICE_CLIENTS
+    ready = threading.Barrier(SERVICE_CLIENTS + 1)
+
+    def client(c: int) -> None:
+        own = range(c * per_client, (c + 1) * per_client)
+        for j in own[:expired_each]:
+            q, plan, k = reqs[j]
+            futs[j] = svc.submit(q, plan=plan, k=k, deadline_s=-1.0)
+        ready.wait(SERVICE_WAIT_S)
+        for j in own[expired_each:]:
+            q, plan, k = reqs[j]
+            futs[j] = svc.submit(q, plan=plan, k=k)
+
+    before = launch_counts()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVICE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    ready.wait(SERVICE_WAIT_S)
+    svc.start()
+    for t in threads:
+        t.join(SERVICE_WAIT_S)
+    check(not any(t.is_alive() for t in threads), "[serve] a client hung")
+    got = {j: f.result(timeout=SERVICE_WAIT_S) for j, f in futs.items()}
+    wall = time.perf_counter() - t0
+    check(svc.shutdown(drain=True, timeout=SERVICE_WAIT_S),
+          "[serve] the service did not shut down")
+    after = launch_counts()
+    check(all(after[k] == before[k] for k in after if k not in
+              GATHER_KERNELS), "[serve] the service launched an all-pairs "
+          "or segment-sum kernel")
+    _add(launched["gist"], {k: after[k] - before[k] for k in GATHER_KERNELS})
+    expired = [j for c in range(SERVICE_CLIENTS)
+               for j in range(c * per_client, c * per_client + expired_each)]
+    check(len(got) == SERVICE_REQUESTS
+          and len({r.rid for r in got.values()}) == SERVICE_REQUESTS
+          and svc.n_done == SERVICE_REQUESTS,
+          "[serve] the service did not answer every rid exactly once")
+    for j, r in got.items():
+        if j in expired:
+            check(r.status == "timeout" and (np.asarray(r.ids) == -1).all(),
+                  f"[serve] service request {j}: {r.status}, not a timeout")
+        else:
+            want = cont[j]
+            check(r.status == "ok" and np.array_equal(r.ids, want.ids)
+                  and np.array_equal(r.dists, want.dists),
+                  f"[serve] service request {j} != the continuous engine's")
+    g = svc.gauges()
+    ch = g["chunks"]
+    lines.append(
+        f"service (thread driver, {SERVICE_CLIENTS} client threads, "
+        f"{SERVICE_MAX_BATCH} lanes): {SERVICE_REQUESTS} requests in "
+        f"{wall:.3f}s, {SERVICE_REQUESTS - SERVICE_EXPIRED} ok == the "
+        f"continuous engine's bit for bit, {g['timeouts']} timeouts (all ids "
+        f"-1); latency ms p50 {g['p50_ms']:.1f}, p99 {g['p99_ms']:.1f}; "
+        f"{_chunk_split(ch)}")
+
+    # int8: continuous == grouped (the serving-side exact re-rank)
+    qreqs = _serve_requests(plans, SERVE_INT8_REQUESTS, SERVE_PLANS[:2],
+                            "gist_int8")
+    qeng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
+                        step_iters=SERVE_STEP_ITERS)
+    (qcont, wall), made = counted(_drain, qeng, qreqs)
+    _add(launched["gist_int8"], made)
+    lines.append(_serve_line("int8 continuous", qeng, wall, len(qreqs)))
+    qgeng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
+                         scheduler="grouped")
+    (qgrp, wall), made = counted(_drain, qgeng, qreqs)
+    _add(launched["gist_int8"], made)
+    _same_responses(qcont, qgrp, "continuous vs grouped (int8)")
+    lines.append(_serve_line("int8 grouped", qgeng, wall, len(qreqs)))
+
+    f32, int8 = launched["gist"], launched["gist_int8"]
+    check(f32["gather_distance_batch"] > 0
+          and f32["quantized_gather_distance_batch"] == 0
+          and int8["quantized_gather_distance_batch"] > 0
+          and int8["gather_distance_batch"] == 0
+          and all(e[k] == 0 for e in (f32, int8) for k in
+                  ("gather_distance", "quantized_gather_distance")),
+          f"[serve] launches: f32 {f32}; int8 {int8}")
+    for line in lines:
+        print(f"[serve] {line}", flush=True)
+    print(f"[serve] checks: every rid answered exactly once in all five "
+          f"runs; continuous == grouped per rid, bit for bit, f32 "
+          f"({SERVE_REQUESTS} requests, {2 * len(SERVE_PLANS)} plans) and "
+          f"int8 ({SERVE_INT8_REQUESTS}, 4 plans); launches: f32 {f32}; int8 "
+          f"{int8}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
     return launched
 
 
@@ -1979,12 +2201,18 @@ def main() -> int:
     reset_counts()                                     # the postfilter path
     pf = timed("postfilter", phase_postfilter, idx, cpu_idx, Q, db["plans"])
     pf_read = launch_counts()
+    reset_counts()                                     # the serving path
+    serve = timed("serve", phase_serve, db["db"], db["plans"])
+    serve_read = launch_counts()
     # the executes' launches (the phase also launched to compare)
     db_path = {n: db["gist"][n] + db["gist_int8"][n] for n in GATHER_KERNELS}
+    serve_path = {n: serve["gist"][n] + serve["gist_int8"][n]
+                  for n in GATHER_KERNELS}
     check(all(db_read[n] >= db_path[n] for n in GATHER_KERNELS)
-          and all(pf_read[n] == pf[n] for n in GATHER_KERNELS),
+          and all(pf_read[n] == pf[n] for n in GATHER_KERNELS)
+          and all(serve_read[n] == serve_path[n] for n in GATHER_KERNELS),
           f"the counters disagree: db {db_read} vs {db_path}, postfilter "
-          f"{pf_read} vs {pf}")
+          f"{pf_read} vs {pf}, serve {serve_read} vs {serve_path}")
     print(f"[launches] distance_matrix: "
           f"{kernels['distance_matrix']['launches']} on its streaming path in "
           f"the recsys requests, "
@@ -2014,10 +2242,16 @@ def main() -> int:
           f"(postfilter), quantized_gather_distance_batch "
           f"{db['gist_int8']['quantized_gather_distance_batch']}, "
           f"quantized_gather_distance "
-          f"{db['gist_int8']['quantized_gather_distance']}; the JSON line's "
-          f"launches add them to the paths above", flush=True)
+          f"{db['gist_int8']['quantized_gather_distance']}; the serving path "
+          f"(SearchEngine continuous and grouped, SearchService; f32 and "
+          f"int8): gather_distance_batch "
+          f"{serve['gist']['gather_distance_batch']}, "
+          f"quantized_gather_distance_batch "
+          f"{serve['gist_int8']['quantized_gather_distance_batch']}, one-lane "
+          f"0 and 0; the JSON line's launches add them to the paths above",
+          flush=True)
     for name in GATHER_KERNELS:
-        kernels[name]["launches"] += db_path[name] + pf[name]
+        kernels[name]["launches"] += db_path[name] + pf[name] + serve_path[name]
     for name, entry in kernels.items():
         check(entry.get("launches", 0) > 0,
               f"{name}: launched no time on its path")

@@ -227,10 +227,14 @@ class NavixDB:
 
     # -- serving -------------------------------------------------------------
     def serve(self, index: Optional[str] = None, **kw):
-        """The live search service waits for the port's serving layer."""
-        raise NotImplementedError(
-            "NavixDB.serve: the port has no serving layer yet (ROADMAP "
-            "Queue 1 item 12)")
+        """Construct a live :class:`~repro_torch.serving.service.
+        SearchService` over one catalog entry (default: the first
+        registered index), on the database's device. Keyword args pass
+        through -- k/efs caps, batch size, deadlines, backpressure policy;
+        see ``SearchService``. Call ``.start()`` (or use it as a context
+        manager) to spawn the device loop."""
+        from repro_torch.serving.service import SearchService
+        return SearchService(self, index=index, **kw)
 
     # -- execution ----------------------------------------------------------
     def prefilter(self, plan: Plan) -> QueryResult:

@@ -32,6 +32,15 @@ Every distance goes through :func:`batch_gather_dist`, i.e.
 ``kernels.ops.quantized_gather_distance_batch`` for an int8-resident
 store: the hand-written CUDA kernels for CUDA tensors, their plain PyTorch
 versions for CPU tensors.
+
+``efs_lanes`` (an int32[B] per-lane efs) makes the beam ragged: each lane
+is bit for bit a search at its own efs.
+
+The ``engine_*`` stepping API at the bottom cuts the same loop into
+resumable chunks (park / refill / step / evict / finalize) for the serving
+tier's continuous scheduler. PyTorch has no buffer donation, so there are
+no ``_overlap`` twins: ``serving.lanes.LaneBatch`` holds the only reference
+to the state, and refill and evict write the visited rows in place.
 """
 
 from __future__ import annotations
@@ -100,7 +109,10 @@ def _frontier_min(st: _BatchState):
     return j, d_un.gather(1, j[:, None])[:, 0]
 
 
-def _r_max(st: _BatchState, efs: int) -> torch.Tensor:
+def _r_max(st: _BatchState, efs) -> torch.Tensor:
+    """Per-lane result-set radius; ``efs`` is the int cap or a per-lane
+    int32[B] (the ragged path: a lane's radius closes once ITS OWN efs
+    slots are selected)."""
     live = st.sel & (st.ids >= 0) & torch.isfinite(st.d)
     r = torch.where(live, st.d, -torch.inf).amax(dim=1)
     return torch.where(live.sum(dim=1) >= efs, r, torch.inf)
@@ -188,14 +200,30 @@ def _visit_test(visited: torch.Tensor, ids: torch.Tensor,
 
 def _visit_set_(visited: torch.Tensor, ids: torch.Tensor) -> None:
     """Mark [B, K] ids visited in place; padding ids go to the dump column
-    ``n``, which no test reads unmasked. Duplicate-safe (a store of True)."""
+    ``n``, which is set in every row from the start (so a store there
+    changes no bit) and which no test reads unmasked. Duplicate-safe (a
+    store of True)."""
     n = visited.shape[1] - 1
     visited.scatter_(1, torch.where(ids >= 0, ids, n).long(), True)
 
 
-def _init_state(graph: HnswGraph, Q: torch.Tensor, sel2: torch.Tensor,
+def _reset_visited_(visited: torch.Tensor, rows: torch.Tensor,
+                    seeds: torch.Tensor | None = None) -> None:
+    """Clear the visited rows ``rows`` (int64 lane indices) in place, keep
+    their dump column set, and mark each row's seed (int32, one a row)
+    when ``seeds`` is given: a masked row assignment, not a pass over the
+    whole [B, n + 1] map."""
+    n = visited.shape[1] - 1
+    visited[rows] = False
+    visited[rows, n] = True
+    if seeds is not None:
+        visited[rows, seeds.long()] = True
+
+
+def _init_beams(graph: HnswGraph, Q: torch.Tensor, sel2: torch.Tensor,
                 seeds: torch.Tensor, params: SearchParams) -> _BatchState:
-    """Fresh per-lane beams holding only each lane's seed entry point."""
+    """Fresh per-lane beams holding only each lane's seed entry point,
+    without the visited map (``visited=None``)."""
     bsz, efs, dev = Q.shape[0], params.efs, Q.device
     seeds = seeds.to(torch.int32)
     seed_d = batch_gather_dist(Q, graph.vectors, seeds[:, None],
@@ -206,22 +234,43 @@ def _init_state(graph: HnswGraph, Q: torch.Tensor, sel2: torch.Tensor,
     ids[:, 0] = seeds
     sel = torch.zeros((bsz, efs), dtype=torch.bool, device=dev)
     sel[:, :1] = bitset.test_batch(sel2, seeds[:, None])
-    visited = torch.zeros((bsz, graph.n + 1), dtype=torch.bool, device=dev)
-    _visit_set_(visited, seeds[:, None])
     zeros = torch.zeros(bsz, dtype=torch.int32, device=dev)
     return _BatchState(
         d=d, ids=ids, exp=torch.zeros((bsz, efs), dtype=torch.bool, device=dev),
-        sel=sel, visited=visited, it=zeros, t_dc=zeros.clone(),
+        sel=sel, visited=None, it=zeros, t_dc=zeros.clone(),
         s_dc=zeros.clone(),
         picks=torch.zeros((bsz, 3), dtype=torch.int32, device=dev))
 
 
+def _init_state(graph: HnswGraph, Q: torch.Tensor, sel2: torch.Tensor,
+                seeds: torch.Tensor, params: SearchParams) -> _BatchState:
+    """Fresh per-lane beams and visited maps holding only each lane's seed
+    entry point."""
+    n = graph.n
+    visited = torch.zeros((Q.shape[0], n + 1), dtype=torch.bool,
+                          device=Q.device)
+    visited[:, n] = True                     # the dump column (_visit_set_)
+    _visit_set_(visited, seeds[:, None])
+    return _init_beams(graph, Q, sel2, seeds, params)._replace(
+        visited=visited)
+
+
 def _loop_fns(graph: HnswGraph, Q: torch.Tensor, sel2: torch.Tensor,
-              params: SearchParams, mode: int, global_branch: torch.Tensor):
+              params: SearchParams, mode: int, global_branch: torch.Tensor,
+              efs_lanes: torch.Tensor | None = None):
     """Build the (lane_cond, body) closures of the batched lower-level
     loop. ``sel2`` is per-lane ``[B, W]``; ``mode`` the resolved heuristic;
-    ``global_branch`` the per-lane branch when the mode is not adaptive."""
+    ``global_branch`` the per-lane branch when the mode is not adaptive.
+
+    ``efs_lanes`` (optional int32[B]) makes the beam RAGGED: after every
+    merge, slots at or past a lane's own efs are cleared (d +inf, id -1,
+    sel False, exp True), so a lane admitted at a small efs is bit for bit
+    a lane whose beam was only ever that wide (the merge is sorted
+    ascending, so its first efs_lanes[b] slots are the narrow beam's).
+    Lanes at the full ``params.efs`` have an empty tail, so a uniform-efs
+    batch is unchanged."""
     efs, metric = params.efs, params.metric
+    efs_eff = efs if efs_lanes is None else efs_lanes
     m_l = graph.m_l
     k2 = params.two_hop_cap or m_l
     max_iters = params.max_iters or graph.n
@@ -235,7 +284,7 @@ def _loop_fns(graph: HnswGraph, Q: torch.Tensor, sel2: torch.Tensor,
         """(j, live): each lane's closest unexpanded slot and whether the
         lane continues (the single-query convergence predicate)."""
         j, d_min = _frontier_min(st)
-        keep = (d_min < torch.inf) & (d_min <= _r_max(st, efs))
+        keep = (d_min < torch.inf) & (d_min <= _r_max(st, efs_eff))
         return j, keep & (st.it < max_iters)
 
     def lane_cond(st: _BatchState) -> torch.Tensor:
@@ -333,14 +382,23 @@ def _loop_fns(graph: HnswGraph, Q: torch.Tensor, sel2: torch.Tensor,
         # order among ties, which padding slots (+inf / -1) rely on
         srt, order = torch.sort(all_d, dim=1, stable=True)
         order = order[:, :efs]
+        new_d, new_id = srt[:, :efs], all_id.gather(1, order)
+        new_exp, new_sel = all_exp.gather(1, order), all_sel.gather(1, order)
+        if efs_lanes is not None:
+            # the ragged beam tail (see above)
+            tail = slots >= efs_lanes[:, None]
+            new_d = torch.where(tail, torch.inf, new_d)
+            new_id = torch.where(tail, -1, new_id)
+            new_exp = new_exp | tail
+            new_sel = new_sel & ~tail
         keep = live[:, None]
         return _BatchState(
-            d=torch.where(keep, srt[:, :efs], st.d),
-            ids=torch.where(keep, all_id.gather(1, order), st.ids),
-            exp=torch.where(keep, all_exp.gather(1, order), st.exp),
-            sel=torch.where(keep, all_sel.gather(1, order), st.sel),
+            d=torch.where(keep, new_d, st.d),
+            ids=torch.where(keep, new_id, st.ids),
+            exp=torch.where(keep, new_exp, st.exp),
+            sel=torch.where(keep, new_sel, st.sel),
             visited=st.visited,          # updated in place; retired lanes
-            it=st.it + live.to(i32),     # marked nothing
+            it=st.it + live.to(i32),     # marked only the dump column
             t_dc=st.t_dc + t_add,
             s_dc=st.s_dc + s_add,
             picks=st.picks + ((branches == branch[:, None])
@@ -364,30 +422,36 @@ def _extract_results(st: _BatchState, efs: int):
 
 def beam_search_lower_batch(graph: HnswGraph, Q: torch.Tensor,
                             sel_bits: torch.Tensor, seeds: torch.Tensor,
-                            params: SearchParams, sigma_g=None):
+                            params: SearchParams, sigma_g=None,
+                            efs_lanes: torch.Tensor | None = None):
     """Search G_L for B queries at once. Returns the full beams
     (dists[B, efs], ids[B, efs]) ascending, plus per-lane stats.
 
     ``seeds``: int32[B] entry node ids (one per lane). ``sel_bits``: one
     shared semimask ``[W]`` or a per-lane stack ``[B, W]``. ``sigma_g``:
-    scalar or per-lane ``[B]`` (ADAPTIVE_GLOBAL only).
+    scalar or per-lane ``[B]`` (ADAPTIVE_GLOBAL only). ``efs_lanes``:
+    optional per-lane int32[B] efs (each lane bit for bit a search at its
+    own efs <= params.efs).
     """
     bsz = Q.shape[0]
     sel2 = bitset.broadcast_lanes(sel_bits, bsz)
     sel2, mode, global_branch = _resolve_branching(
         sel2, params, sigma_g, graph.n, graph.m_l, bsz)
-    lane_cond, body = _loop_fns(graph, Q, sel2, params, mode, global_branch)
+    lane_cond, body = _loop_fns(graph, Q, sel2, params, mode, global_branch,
+                                efs_lanes=efs_lanes)
     st = _run_chunked(body, _init_state(graph, Q, sel2, seeds, params),
                       lane_cond)
     return _extract_results(st, params.efs)
 
 
 def search_lanes(graph: HnswGraph, Q: torch.Tensor, sel_bits: torch.Tensor,
-                 params: SearchParams, sigma_g=None) -> SearchResult:
+                 params: SearchParams, sigma_g=None,
+                 efs_lanes: torch.Tensor | None = None) -> SearchResult:
     """Full 2-level filtered search for a [B, d] query batch."""
     entry, upper_dc = greedy_upper_batch(graph, Q, params.metric)
     beam_d, beam_id, stats = beam_search_lower_batch(
-        graph, Q, sel_bits, entry, params, sigma_g=sigma_g)
+        graph, Q, sel_bits, entry, params, sigma_g=sigma_g,
+        efs_lanes=efs_lanes)
     k = params.k
     return SearchResult(
         dists=beam_d[:, :k], ids=beam_id[:, :k],
@@ -396,19 +460,176 @@ def search_lanes(graph: HnswGraph, Q: torch.Tensor, sel_bits: torch.Tensor,
 
 
 def search_many(graph: HnswGraph, Q: torch.Tensor, sel_bits: torch.Tensor,
-                params: SearchParams, sigma_g=None) -> SearchResult:
+                params: SearchParams, sigma_g=None,
+                efs_lanes: torch.Tensor | None = None) -> SearchResult:
     """Full 2-level filtered search for a [B, d] query batch.
 
     Lane for lane equal to ``search.search`` per query with that lane's own
     semimask (same ids, dists and stats). ``sel_bits`` is ``[W]`` (shared)
-    or ``[B, W]`` (per lane).
+    or ``[B, W]`` (per lane); ``efs_lanes`` (optional int32[B]) runs each
+    lane at its own efs.
     """
     Q = Q.to(torch.float32)
-    if Q.device != graph.device or sel_bits.device != graph.device:
-        raise ValueError(f"queries on {Q.device} and semimask on "
-                         f"{sel_bits.device}, but the graph is on "
+    on = {Q.device, sel_bits.device}
+    if efs_lanes is not None:
+        on.add(efs_lanes.device)
+    if on != {graph.device}:
+        raise ValueError(f"queries, semimask and efs_lanes on "
+                         f"{sorted(map(str, on))}, but the graph is on "
                          f"{graph.device}")
-    return search_lanes(graph, Q, sel_bits, params, sigma_g=sigma_g)
+    return search_lanes(graph, Q, sel_bits, params, sigma_g=sigma_g,
+                        efs_lanes=efs_lanes)
+
+
+# ---------------------------------------------------------------------------
+# resumable stepping API -- the continuous scheduler's device side
+# ---------------------------------------------------------------------------
+# The serving tier holds a fixed [B, efs] beam state across calls:
+#   parked_state    -> all lanes empty (converged by construction)
+#   engine_refill   -> reset some lanes to fresh beams for new requests
+#   engine_steps    -> advance n_steps loop iterations; per-lane live mask
+#   engine_evict    -> park some lanes (deadline eviction)
+#   engine_finalize -> per-lane (dists, ids, stats) at any point
+# A lane stepped to convergence through any chunking passes through exactly
+# the `search_many` state sequence (converged and parked lanes are frozen by
+# the body's live mask), so its result is bit for bit the single query's.
+# The reference's ``*_lanes`` bodies and jitted ``engine_*`` entries are one
+# function each here (eager PyTorch compiles nothing); both names are kept.
+
+
+def _lane_mask(mask: torch.Tensor, device: torch.device):
+    """A bool[B] lane mask on ``device`` and its int64 row indices there. A
+    host mask gives its rows without reading the device; a device mask
+    costs one read."""
+    rows = torch.nonzero(mask)[:, 0]
+    return (mask.to(device, non_blocking=True),
+            rows.to(device, non_blocking=True))
+
+
+def _parked_beams(bsz: int, efs: int, device) -> _BatchState:
+    """Empty, converged beams (``visited=None``)."""
+    zeros = torch.zeros(bsz, dtype=torch.int32, device=device)
+    return _BatchState(
+        d=torch.full((bsz, efs), torch.inf, device=device),
+        ids=torch.full((bsz, efs), -1, dtype=torch.int32, device=device),
+        exp=torch.ones((bsz, efs), dtype=torch.bool, device=device),
+        sel=torch.zeros((bsz, efs), dtype=torch.bool, device=device),
+        visited=None, it=zeros, t_dc=zeros.clone(), s_dc=zeros.clone(),
+        picks=torch.zeros((bsz, 3), dtype=torch.int32, device=device))
+
+
+def parked_state(n: int, bsz: int, params: SearchParams,
+                 device: torch.device | str) -> _BatchState:
+    """An all-parked batch state on ``device``: every lane empty and
+    converged."""
+    visited = torch.zeros((bsz, n + 1), dtype=torch.bool, device=device)
+    visited[:, n] = True                     # the dump column (_visit_set_)
+    return _parked_beams(bsz, params.efs, device)._replace(visited=visited)
+
+
+def _merge_lanes(mask: torch.Tensor, new: _BatchState,
+                 old: _BatchState) -> _BatchState:
+    """``new``'s lanes where ``mask`` (bool[B] on the device), ``old``'s
+    elsewhere; the visited map is ``old``'s (its rows are written in place
+    by the caller)."""
+    def pick(a, b):
+        return torch.where(mask.view((-1,) + (1,) * (a.ndim - 1)), a, b)
+    return _BatchState(*(old.visited if f == "visited" else
+                         pick(getattr(new, f), getattr(old, f))
+                         for f in _BatchState._fields))
+
+
+def refill_lanes(graph: HnswGraph, Q: torch.Tensor, sel_bits: torch.Tensor,
+                 st: _BatchState, upper_dc: torch.Tensor,
+                 refill: torch.Tensor, params: SearchParams
+                 ) -> tuple[_BatchState, torch.Tensor]:
+    """Reset the lanes flagged in ``refill`` (bool[B], on the host or the
+    state's device) to fresh beams.
+
+    Refilled lanes run the greedy upper descent for their (new) query and
+    start a fresh lower-level beam over their (new) per-lane semimask; all
+    other lanes pass through bit for bit. The upper descent and the beams
+    are made for the whole batch and merged by the mask, as the reference
+    does; the visited map's flagged rows are rewritten in place. Returns
+    the state and the per-lane ``upper_dc`` accounting.
+    """
+    bsz, dev = Q.shape[0], Q.device
+    sel2 = bitset.broadcast_lanes(sel_bits, bsz)
+    sel2, _, _ = _resolve_branching(sel2, params, None, graph.n,
+                                    graph.m_l, bsz)
+    entry, dc = greedy_upper_batch(graph, Q, params.metric)
+    fresh = _init_beams(graph, Q, sel2, entry, params)
+    mask, rows = _lane_mask(refill, dev)
+    _reset_visited_(st.visited, rows, entry[rows])
+    return (_merge_lanes(mask, fresh, st),
+            torch.where(mask, dc.to(torch.int32) + 1, upper_dc))
+
+
+#: the reference's jitted entry; the same eager function here
+engine_refill = refill_lanes
+
+
+def step_lanes(graph: HnswGraph, Q: torch.Tensor, sel_bits: torch.Tensor,
+               st: _BatchState, params: SearchParams, n_steps: int,
+               sigma_g=None, efs_lanes: torch.Tensor | None = None
+               ) -> tuple[_BatchState, torch.Tensor]:
+    """Advance the batch by ``n_steps`` loop iterations (``n_steps=0``: run
+    to whole-batch convergence, reading the device once a ``CHUNK``).
+
+    Returns ``(state, live bool[B])`` with ``live`` a device tensor; a lane
+    with ``live == False`` has converged (or is parked) and is safe to
+    finalize and refill. ``n_steps > 0`` reads nothing from the device:
+    it applies the body ``n_steps`` times, which changes no bit of a
+    converged lane (the reference stops early instead; the states agree).
+    ``efs_lanes`` (optional int32[B]) steps each lane at its own efs and
+    must stay constant for a lane between refills.
+    """
+    bsz = Q.shape[0]
+    sel2 = bitset.broadcast_lanes(sel_bits, bsz)
+    sel2, mode, global_branch = _resolve_branching(
+        sel2, params, sigma_g, graph.n, graph.m_l, bsz)
+    lane_cond, body = _loop_fns(graph, Q, sel2, params, mode, global_branch,
+                                efs_lanes=efs_lanes)
+    if n_steps:
+        for _ in range(n_steps):
+            st = body(st)
+    else:
+        st = _run_chunked(body, st, lane_cond)
+    return st, lane_cond(st)
+
+
+engine_steps = step_lanes
+
+
+def evict_lanes(st: _BatchState, upper_dc: torch.Tensor,
+                evict: torch.Tensor) -> tuple[_BatchState, torch.Tensor]:
+    """Park the lanes flagged in ``evict`` (bool[B], on the host or the
+    state's device): their beams become empty and converged (ids -1, sel
+    False, d +inf), so they stop contributing work in ``engine_steps``,
+    finalize to all ``-1`` ids, and are immediately refillable. The serving
+    tier finalizes first (to salvage a partial beam), then evicts. The
+    visited map's flagged rows are cleared in place."""
+    dev = st.it.device
+    mask, rows = _lane_mask(evict, dev)
+    _reset_visited_(st.visited, rows)
+    return (_merge_lanes(mask, _parked_beams(*st.ids.shape, dev), st),
+            torch.where(mask, 0, upper_dc))
+
+
+engine_evict = evict_lanes
+
+
+def finalize_lanes(st: _BatchState, upper_dc: torch.Tensor,
+                   params: SearchParams) -> SearchResult:
+    """Per-lane results of a (possibly partly converged) batch state: the
+    full-efs beams (the host slices each lane to its own k) and the stats,
+    with ``upper_dc``."""
+    out_d, out_id, stats = _extract_results(st, params.efs)
+    return SearchResult(dists=out_d, ids=out_id,
+                        stats=stats._replace(upper_dc=upper_dc.to(torch.int32)))
+
+
+engine_finalize = finalize_lanes
 
 
 #: the multi-row execution engines (name -> entry point): the one registry

@@ -646,9 +646,14 @@ def test_register_rejects_what_the_port_cannot_hold(wikidb):
 
 
 def test_serve_waits_for_the_serving_slice(wikidb):
+    """The serving slice has landed: ``serve()`` returns a live service on
+    the database's device; the sharded arm still waits for item 13."""
+    from repro_torch.serving import SearchService
     _, tdb, *_ = wikidb
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tdb.serve()
+    svc = tdb.serve(k_cap=4, efs_cap=8, max_batch=2)
+    assert isinstance(svc, SearchService)
+    assert svc.entry.name == "chunk_emb" and svc.lanes.device.type == "cpu"
+    assert svc.shutdown(timeout=60)
     with pytest.raises(NotImplementedError, match="item 13"):
         tdb.programs.search_sharded(None, None, None, None, None)
 

@@ -494,3 +494,77 @@ def test_postfilter_on_the_card_equals_its_cpu_copy(cuda):
     torch.testing.assert_close(torch.from_numpy(d), torch.from_numpy(d_cpu),
                                rtol=1e-5, atol=0.0)
     assert mask[ids[ids >= 0]].all() and stats.restarts >= 1
+
+
+def _serving_index(cuda):
+    X, _, centers = gaussian_mixture(3000, 32, 10, seed=0)
+    idx, _ = NavixIndex.create(X, NavixConfig(m_u=8, ef_construction=64))
+    assert idx.device.type == "cuda"
+    rng = np.random.default_rng(5)
+    Q = (centers[rng.integers(0, 10, 24)]
+         + 0.3 * rng.normal(size=(24, 32))).astype(np.float32)
+    return idx, Q
+
+
+def test_lane_batch_step_async_equals_step_on_the_card(cuda):
+    """step_async + work issued mid-flight + step_wait == step, bit for bit:
+    the chunk runs on the stream, its liveness lands in pinned memory and
+    the host syncs on one event a chunk."""
+    from repro_torch.core import bitset
+    from repro_torch.serving.lanes import LaneBatch
+    idx, Q = _serving_index(cuda)
+    n = idx.graph.n
+    prepped = idx._prep_query(Q).cpu().numpy()
+    cuts = [n // 5, n // 2, n, n // 3, n // 4, n // 7, 2 * n // 3, n // 9]
+    entries = [(j, prepped[j], bitset.pack_np(np.arange(n) < c), c / n,
+                (12, 24, 40)[j % 3]) for j, c in enumerate(cuts)]
+    a = LaneBatch(idx, "adaptive_local", 6, 40, bsz=8)
+    b = LaneBatch(idx, "adaptive_local", 6, 40, bsz=8)
+    assert a._live_host.is_pinned()
+    a.admit(list(entries))
+    b.admit(list(entries))
+    while True:
+        a.step_async(3)
+        assert a.step_pending
+        ids_a, d_a = a.finalize(np.ones(1, bool))     # queued behind it
+        live_a = a.step_wait()
+        live_b = b.step(3)
+        ids_b, d_b = b.finalize(np.ones(1, bool))
+        assert np.array_equal(live_a, live_b)
+        assert np.array_equal(ids_a, ids_b) and np.array_equal(d_a, d_b)
+        if not live_a.any():
+            break
+    assert a.timing()["n_chunks"] == b.timing()["n_chunks"] > 1
+
+
+def test_continuous_equals_search_many_on_the_card(cuda):
+    """The continuous scheduler on the card (ragged efs, refills while other
+    lanes run) answers each request bit for bit as the one-shot
+    ``search_many`` at the request's own efs; grouped equals it too."""
+    from repro_torch.query.operators import Filter, KnnSearch, NodeScan
+    from repro_torch.serving import SearchEngine
+    from repro_torch.storage.columnar import GraphStore
+    idx, Q = _serving_index(cuda)
+    n = idx.graph.n
+    store = GraphStore()
+    store.add_node_table("Chunk", n, {"cID": np.arange(n)})
+    reqs = [(int(n * f), k, e) for f, k, e in
+            [(0.1, 6, 12), (0.5, 6, 40), (1.0, 4, 20), (0.3, 6, 24),
+             (0.05, 5, 16), (0.8, 6, 30)] * 4]
+    results = {}
+    for sched in ("continuous", "grouped"):
+        eng = SearchEngine(index=idx, store=store, efs=40, max_batch=8,
+                           scheduler=sched, step_iters=4, refill_threshold=2)
+        rids = [eng.submit(Q[j], k=k, plan=KnnSearch(
+            child=Filter(NodeScan("Chunk"), "cID", "<", value=c), k=k,
+            efs=e)) for j, (c, k, e) in enumerate(reqs)]
+        by = {r.rid: r for r in eng.drain()}
+        assert sorted(by) == sorted(rids)
+        results[sched] = [by[rid] for rid in rids]
+    for j, (c, k, e) in enumerate(reqs):
+        want = idx.search_many(Q[j:j + 1], k=k, efs=e,
+                               semimask=(np.arange(n) < c)[None])
+        for sched in ("continuous", "grouped"):
+            r = results[sched][j]
+            assert np.array_equal(r.ids, want.ids[0].cpu().numpy()), sched
+            assert np.array_equal(r.dists, want.dists[0].cpu().numpy())
