@@ -38,6 +38,13 @@ same database it serves requests of mixed plans and beam widths through the
 serving tier (``[serve]``): ``SearchEngine``'s continuous scheduler against
 its grouped one, bit for bit per request, and ``db.serve()``'s live service
 with client threads and expired deadlines, on the f32 and the int8 entry.
+Last, it shards the first 131,071 rows over a grid of 4 shards on the one
+card (``[shard]``): a ``ShardedNavix`` searched per lane, with a shared
+mask, under a quorum and on a data = 2 grid, each bit for bit against the
+on-card oracle ``per_shard_reference`` or the data = 1 answer, then through
+``NavixDB.execute(alive=...)``, the continuous scheduler (each request
+against the one-shot search of its group) and a live service whose last
+shard's heartbeats stop mid-drain.
 Each phase prints one line or two; a failed
 phase raises, so the script exits non-zero and prints no ``ok`` line. The
 last three lines are the card's name and power limit, a JSON line of
@@ -71,6 +78,10 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.api import NavixDB  # noqa: E402
 from repro_torch.configs.navix_paper import (PAPER_INDEX,  # noqa: E402
                                              SELECTIVITIES)
+from repro_torch.core.distances import brute_force_topk  # noqa: E402
+from repro_torch.core.distributed import (ShardedNavix,  # noqa: E402
+                                          make_mesh, per_shard_reference,
+                                          reference_merge, shard_searches)
 from repro_torch.core.graph import check_symmetric_fraction  # noqa: E402
 from repro_torch.core.navix import NavixIndex  # noqa: E402
 from repro_torch.core.quantize import QuantizedStore, quantize  # noqa: E402
@@ -78,8 +89,9 @@ from repro_torch.data.synthetic import (WikiLike,  # noqa: E402
                                         correlation_ratio, gaussian_mixture,
                                         make_queries, person_chunk_plan,
                                         two_hop_plan, uncorrelated_plan)
-from repro_torch.query.operators import KnnSearch  # noqa: E402
-from repro_torch.serving import SearchEngine  # noqa: E402
+from repro_torch.query.operators import (Filter, KnnSearch,  # noqa: E402
+                                         NodeScan)
+from repro_torch.serving import HeartbeatMonitor, SearchEngine  # noqa: E402
 from repro_torch.storage.columnar import ExactTier, GraphStore  # noqa: E402
 from repro_torch.config.base import get_arch  # noqa: E402
 from repro_torch.core import build as build_module  # noqa: E402
@@ -97,7 +109,7 @@ N_QUERIES = 1024
 K = 100
 EFS = 200
 BUILD_MORSEL = 2048          # the paper's morsel size
-PARITY_LANES = 16           # per sigma and per arm (f32, int8)
+PARITY_LANES = 8            # per sigma and per arm (f32, int8)
 PARITY_SIGMAS = (1.0, 0.1, 0.01)
 # kernel vs plain version: a different f32 summation order
 RTOL, ATOL = 1e-5, 1e-4
@@ -196,6 +208,25 @@ SERVICE_MAX_BATCH = 512
 SERVICE_WAIT_S = 300.0
 # the int8 entry: requests over the first two plans of SERVE_PLANS
 SERVE_INT8_REQUESTS = 1024
+# [shard]: a ShardedNavix of 4 shards on the one card over the first rows of
+# the 1M data (n_local 32,768, one padded row): the whole 1M rows would add
+# about 380 s of build to a run that must end inside 1200 s
+SHARD_ROWS = 131_071
+SHARD_COUNT = 4
+SHARD_SIGMAS = (1.0, 0.4, 0.1, 0.0, 0.03, 0.7)   # the lanes' mask cycle
+SHARD_SHARED_SIGMA = 0.1
+SHARD_ALIVE = (True, True, False, True)
+SHARD_QUORUM = 3
+SHARD_BUCKETS = 10          # a "bucket" column in [0, 10): the plans' filter
+SHARD_SELECTIONS = {"bucket == 1": ("==", 1), "bucket < 5": ("<", 5)}
+# request counts trimmed (1024 -> 512, 256 -> 128) after a 1152.3 s run on
+# a slow host; the checks are unchanged
+SHARD_SERVE_REQUESTS = 512
+SHARD_SERVICE_REQUESTS = 128
+SHARD_SERVICE_LANES = 64
+# the (2, 4) grid's pass: its first lanes only (all six sigmas in each of
+# its two blocks); it checks the layout, not the throughput
+SHARD_GRID_LANES = 256
 F32_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
 INT8_SOURCE = "src/repro_torch/kernels/csrc/quantized_gather_distance.cu"
 TPU_KERNELS = "src/repro/kernels/gather_distance.py"
@@ -2121,6 +2152,280 @@ def phase_serve(db, plans: dict) -> dict:
     return launched
 
 
+class _Clock:
+    """A clock the main thread sets: the heartbeat monitor of ``[shard]``
+    reads it, so a shard goes stale exactly when the phase says."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _same_oracle(res, oracle, what: str) -> None:
+    """A sharded SearchResult == ``per_shard_reference``'s numpy (dists,
+    ids, stats), bit for bit."""
+    d, ids, stats = oracle
+    check(np.array_equal(res.ids.cpu().numpy(), ids)
+          and np.array_equal(res.dists.cpu().numpy(), d)
+          and all(np.array_equal(getattr(res.stats, f).cpu().numpy(),
+                                 getattr(stats, f))
+                  for f in res.stats._fields),
+          f"[shard] {what}: != per_shard_reference on the card")
+
+
+def _recall(res_ids: np.ndarray, true_ids: np.ndarray) -> float:
+    """recall@k over rows, -1 padding ignored (``NavixIndex.recall``)."""
+    hits = denom = 0
+    for r, t in zip(res_ids, true_ids):
+        tset = set(t[t >= 0].tolist())
+        denom += len(tset)
+        hits += len(tset & set(r[r >= 0].tolist()))
+    return hits / max(denom, 1)
+
+
+def phase_shard(X: np.ndarray, Q: np.ndarray, smi: str) -> dict:
+    """The sharded path on one card: a ShardedNavix of SHARD_COUNT shards,
+    every grid cell ``cuda:0``, over X (the first SHARD_ROWS rows); its
+    one-shot search per lane, shared, under a quorum and on a data = 2
+    grid, each held bit for bit against the on-card oracle or the data = 1
+    answer; ``NavixDB.execute`` with ``alive``; the continuous scheduler
+    against the one-shot search of each request's group; a live service
+    whose last shard goes stale mid-drain. Returns the launches of the
+    path's calls (the oracles' are not counted)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    launched, lines = {}, []
+    n = len(X)
+    cfg = PAPER_INDEX._replace(batch_size=BUILD_MORSEL)
+
+    # 1. the grid and the build: one graph a shard, each on cuda:0
+    mesh = make_mesh((1, SHARD_COUNT))
+    t0 = time.perf_counter()
+    sn, made = counted(ShardedNavix.build, X, cfg, mesh)
+    sync()
+    build_s = time.perf_counter() - t0
+    _add(launched, made)
+    nl = sn.n_local
+    check(sn.n_shards == SHARD_COUNT and sn.n_total == n
+          and nl * SHARD_COUNT - n == -n % SHARD_COUNT
+          and all(g.device == sn.device and g.n == nl for g in sn.graphs)
+          and sn.device.type == "cuda", f"[shard] the grid: {mesh}")
+    lines.append(f"{mesh}: build of {n:,} x {X.shape[1]} rows in "
+                 f"{SHARD_COUNT} shards of {nl:,} ({SHARD_COUNT * nl - n} "
+                 f"padded) {build_s:.1f}s, index "
+                 f"{sum(g.nbytes() for g in sn.graphs) / 2**30:.3f} GiB, "
+                 f"kernel 1 launches {made['gather_distance_batch']}")
+
+    # 2. per-lane masks cycling SHARD_SIGMAS
+    rng = np.random.default_rng(4)
+    base = {s: rng.random(n) < s for s in SHARD_SIGMAS}
+    lanes = np.stack([base[SHARD_SIGMAS[j % len(SHARD_SIGMAS)]]
+                      for j in range(len(Q))])
+    params = sn._params(K, EFS, "adaptive_local")
+
+    def timed_search(index, q=Q, **kw):
+        sync()
+        t0 = time.perf_counter()
+        res, made = counted(index.search_many, q, k=K, efs=EFS, **kw)
+        sync()
+        _add(launched, made)
+        return res, time.perf_counter() - t0, made
+
+    res, dt, made = timed_search(sn, semimask=lanes)
+    check(tuple(res.ids.shape) == (len(Q), K), "[shard] malformed result")
+    # the oracle's per-shard searches, merged here and again under the
+    # alive mask of step 4
+    searches = shard_searches(sn, Q, lanes, params)
+    _same_oracle(res, reference_merge(sn, searches, K), "per-lane masks")
+    lines.append(f"per-lane masks (sigma cycle {SHARD_SIGMAS}), B={len(Q)}, "
+                 f"k={K}, efs={EFS}: QPS {len(Q) / dt:.1f} ({dt:.3f}s), "
+                 f"kernel 1 launches {made['gather_distance_batch']}, == "
+                 "per_shard_reference bit for bit (ids, dists, 5 stats)")
+
+    # 3. one shared mask, and its recall against filtered brute force
+    shared = base[SHARD_SHARED_SIGMA]
+    res_s, dt, _ = timed_search(sn, semimask=shared)
+    _same_oracle(res_s, per_shard_reference(
+        sn, Q, np.broadcast_to(shared, (len(Q), n)), params), "shared mask")
+    Xt = torch.from_numpy(X).to(sn.device)
+    Qt = torch.from_numpy(Q).to(sn.device)
+    mask_t = torch.from_numpy(shared).to(sn.device)
+    true_ids = torch.cat([brute_force_topk(Qt[i:i + 256], Xt, K, "l2",
+                                           mask=mask_t)[1]
+                          for i in range(0, len(Q), 256)])
+    del Xt
+    rec = _recall(res_s.ids.cpu().numpy(), true_ids.cpu().numpy())
+    lines.append(f"shared mask sigma={SHARD_SHARED_SIGMA}: QPS "
+                 f"{len(Q) / dt:.1f} ({dt:.3f}s), recall@{K} {rec:.4f}, == "
+                 "per_shard_reference bit for bit")
+
+    # 4. a dead shard under a quorum of 3; a quorum of 4 is not met
+    alive = np.array(SHARD_ALIVE)
+    dead = int(np.flatnonzero(~alive)[0])
+    res_q, dt, _ = timed_search(sn, semimask=lanes, alive=alive,
+                                quorum=SHARD_QUORUM)
+    _same_oracle(res_q, reference_merge(sn, searches, K, alive),
+                 "alive mask")
+    ids_q = res_q.ids.cpu().numpy()
+    check(not ((ids_q >= dead * nl) & (ids_q < (dead + 1) * nl)).any(),
+          "[shard] a dead shard's id surfaced")
+    try:
+        sn.search_many(Q[:4], k=K, efs=EFS, alive=alive,
+                       quorum=SHARD_COUNT)
+        check(False, "[shard] a quorum of 4 with a dead shard did not raise")
+    except RuntimeError as e:
+        check("quorum not met" in str(e), f"[shard] quorum error: {e}")
+
+    # 5. the data axis: the same shard graphs on a (2, 4) grid, over the
+    # first SHARD_GRID_LANES lanes (a lane's answer does not depend on the
+    # batch it is in, so they equal the (1, 4) grid's first lanes)
+    sn2 = ShardedNavix(mesh=make_mesh((2, SHARD_COUNT)), graphs=sn.graphs,
+                       n_local=nl, n_total=n, config=cfg)
+    g = SHARD_GRID_LANES
+    res2, dt2, _ = timed_search(sn2, q=Q[:g], semimask=lanes[:g])
+    _same_rs(res, res2, "[shard] the (2, 4) grid vs the (1, 4) grid",
+             a_lanes=slice(0, g), b_lanes=slice(0, g))
+    lines.append(f"alive {SHARD_ALIVE}, quorum {SHARD_QUORUM}: QPS "
+                 f"{len(Q) / dt:.1f}, == per_shard_reference restricted to "
+                 f"the alive shards, no id of shard {dead}; quorum "
+                 f"{SHARD_COUNT} raises; (2, {SHARD_COUNT}) grid (2 lane "
+                 f"blocks of {g // 2}): QPS {g / dt2:.1f}, == the (1, 4) "
+                 f"grid's first {g} lanes bit for bit")
+
+    # 6. NavixDB: the sharded entry through execute(alive=...)
+    store = GraphStore()
+    bucket = rng.integers(0, SHARD_BUCKETS, n)
+    store.add_node_table("Chunk", n, {"cID": np.arange(n), "bucket": bucket})
+    db = NavixDB(store)
+    db.register_index("shards", sn)
+    sels = {name: (Filter(NodeScan("Chunk"), "bucket", op, value=v),
+                   bucket == v if op == "==" else bucket < v)
+            for name, (op, v) in SHARD_SELECTIONS.items()}
+    sel, mask = sels["bucket == 1"]
+    sync()
+    t0 = time.perf_counter()
+    rs, made = counted(db.execute, KnnSearch(child=sel, k=K, efs=EFS,
+                                             index="shards"),
+                       query=Q, alive=alive)
+    dt = time.perf_counter() - t0
+    _add(launched, made)
+    check(np.array_equal(rs.mask, mask), "[shard] execute's prefilter mask")
+    want = sn.search_many(Q, semimask=mask, k=K, efs=EFS, alive=alive)
+    _same_rs(rs, want, "[shard] execute(alive=...) vs search_many")
+    info = db.programs.info()
+    check(info["misses"] == 1 and info["hits"] == 1,
+          f"[shard] program cache {info}")
+    lines.append(f"NavixDB.execute(alive={SHARD_ALIVE}) of bucket == 1 "
+                 f"(sigma {rs.sigma:.4f}): QPS {len(Q) / dt:.1f}, search "
+                 f"{rs.timings.search_ms:.1f} of {rs.timings.total_ms:.1f} ms,"
+                 f" == search_many bit for bit; cache {info}")
+
+    # 7. serving: the continuous scheduler over mixed plans and beams
+    reqs = []
+    for j in range(SHARD_SERVE_REQUESTS):
+        p = j % (2 * len(SHARD_SELECTIONS))
+        name = list(SHARD_SELECTIONS)[p // 2]
+        k, efs = SERVE_SHAPES[p % 2]
+        reqs.append((Q[j % len(Q)], KnnSearch(child=sels[name][0], k=k,
+                                              efs=efs, index="shards"), k))
+    eng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
+                       step_iters=SERVE_STEP_ITERS)
+    (cont, wall), made = counted(_drain, eng, reqs)
+    _add(launched, made)
+    for p in range(2 * len(SHARD_SELECTIONS)):
+        name = list(SHARD_SELECTIONS)[p // 2]
+        k, efs = SERVE_SHAPES[p % 2]
+        group = list(range(p, len(reqs), 2 * len(SHARD_SELECTIONS)))
+        one = sn.search_many(np.stack([reqs[j][0] for j in group]),
+                             semimask=sels[name][1], k=k, efs=efs)
+        ids, d = one.ids.cpu().numpy(), one.dists.cpu().numpy()
+        for row, j in enumerate(group):
+            r = cont[j]
+            check(r.status == "ok" and not r.degraded
+                  and np.array_equal(r.ids, ids[row])
+                  and np.array_equal(r.dists, d[row]),
+                  f"[shard] serving request {j} != the one-shot search of "
+                  f"its group")
+    lines.append(_serve_line(f"continuous (max_batch {SERVE_MAX_BATCH}, "
+                             f"chunks of {SERVE_STEP_ITERS})", eng, wall,
+                             len(reqs))
+                 + f"; each rid == the one-shot search of its group "
+                 f"({2 * len(SHARD_SELECTIONS)} groups) bit for bit")
+
+    # 8. a live service whose last shard's heartbeats stop mid-drain
+    clk = _Clock()
+    hb = HeartbeatMonitor(SHARD_COUNT, stale_after=1.0, clock=clk)
+    svc = db.serve(index="shards", k_cap=K, efs_cap=EFS,
+                   max_batch=SHARD_SERVICE_LANES,
+                   step_iters=SERVE_STEP_ITERS, heartbeats=hb,
+                   queue_size=2 * SHARD_SERVICE_REQUESTS)
+    futs = [svc.submit(q, plan=plan, k=k)
+            for q, plan, k in reqs[:SHARD_SERVICE_REQUESTS]]
+    before = launch_counts()
+    t0 = time.perf_counter()
+    svc.start()
+    deadline = time.perf_counter() + SERVICE_WAIT_S
+    while (sum(f.done() for f in futs) < SHARD_SERVICE_LANES // 2
+           and time.perf_counter() < deadline):
+        time.sleep(0.005)
+    n_before = sum(f.done() for f in futs)
+    hb.suppress(SHARD_COUNT - 1)
+    clk.t = 10.0                        # the last shard's beat is now stale
+    hb.beat_all()
+    got = [f.result(timeout=SERVICE_WAIT_S) for f in futs]
+    wall = time.perf_counter() - t0
+    check(svc.shutdown(drain=True, timeout=SERVICE_WAIT_S),
+          "[shard] the service did not shut down")
+    after = launch_counts()
+    check(all(after[k] == before[k] for k in after
+              if k not in GATHER_KERNELS),
+          "[shard] the service launched an all-pairs or segment-sum kernel")
+    _add(launched, {k: after[k] - before[k] for k in GATHER_KERNELS})
+    check(len({r.rid for r in got}) == SHARD_SERVICE_REQUESTS
+          and svc.n_done == SHARD_SERVICE_REQUESTS,
+          "[shard] the service did not answer every rid exactly once")
+    lo = (SHARD_COUNT - 1) * nl
+    degraded = 0
+    for j, r in enumerate(got):
+        ids = np.asarray(r.ids)
+        check(r.status == "ok", f"[shard] service request {j}: {r.status}")
+        if r.degraded:
+            degraded += 1
+            check(not (ids >= lo).any(),
+                  f"[shard] degraded request {j} holds a dead shard's id")
+        else:
+            check(np.array_equal(ids, cont[j].ids)
+                  and np.array_equal(r.dists, cont[j].dists),
+                  f"[shard] service request {j} != the continuous engine's")
+    check(degraded >= SHARD_SERVICE_REQUESTS - n_before - SHARD_SERVICE_LANES
+          and degraded > 0,
+          f"[shard] {degraded} degraded responses after the flip at "
+          f"{n_before} done")
+    g = svc.gauges()
+    lines.append(f"service ({SHARD_SERVICE_LANES} lanes, heartbeats, shard "
+                 f"{SHARD_COUNT - 1} stale after {n_before} answers): "
+                 f"{SHARD_SERVICE_REQUESTS} requests in {wall:.3f}s, "
+                 f"{degraded} degraded with no id of the stale shard, the "
+                 f"other {SHARD_SERVICE_REQUESTS - degraded} == the "
+                 f"continuous engine's bit for bit; latency ms p50 "
+                 f"{g['p50_ms']:.1f}, p99 {g['p99_ms']:.1f}")
+
+    check(launched["gather_distance_batch"] > 0
+          and all(launched[k] == 0 for k in
+                  ("quantized_gather_distance_batch", "gather_distance",
+                   "quantized_gather_distance")),
+          f"[shard] launches: {launched}")
+    for line in lines:
+        print(f"[shard] {line}", flush=True)
+    print(f"[shard] launches of the path (the oracles' apart): {launched}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB; {smi}; phase {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2159,6 +2464,7 @@ def main() -> int:
     masks = make_masks(len(X), SELECTIVITIES)
     masks[1.0] = None
     sweep = {s: masks[s] for s in SELECTIVITIES}
+    X_shard = X[:SHARD_ROWS].copy()                    # [shard]'s rows
 
     reset_counts()                                     # f32 path: build
     idx = timed("build", phase_build, X)               # + search
@@ -2204,15 +2510,20 @@ def main() -> int:
     reset_counts()                                     # the serving path
     serve = timed("serve", phase_serve, db["db"], db["plans"])
     serve_read = launch_counts()
+    reset_counts()                                     # the sharded path
+    shard = timed("shard", phase_shard, X_shard, Q, smi)
+    shard_read = launch_counts()
     # the executes' launches (the phase also launched to compare)
     db_path = {n: db["gist"][n] + db["gist_int8"][n] for n in GATHER_KERNELS}
     serve_path = {n: serve["gist"][n] + serve["gist_int8"][n]
                   for n in GATHER_KERNELS}
     check(all(db_read[n] >= db_path[n] for n in GATHER_KERNELS)
           and all(pf_read[n] == pf[n] for n in GATHER_KERNELS)
-          and all(serve_read[n] == serve_path[n] for n in GATHER_KERNELS),
+          and all(serve_read[n] == serve_path[n] for n in GATHER_KERNELS)
+          and all(shard_read[n] >= shard[n] for n in GATHER_KERNELS),
           f"the counters disagree: db {db_read} vs {db_path}, postfilter "
-          f"{pf_read} vs {pf}, serve {serve_read} vs {serve_path}")
+          f"{pf_read} vs {pf}, serve {serve_read} vs {serve_path}, shard "
+          f"{shard_read} vs {shard}")
     print(f"[launches] distance_matrix: "
           f"{kernels['distance_matrix']['launches']} on its streaming path in "
           f"the recsys requests, "
@@ -2248,10 +2559,13 @@ def main() -> int:
           f"{serve['gist']['gather_distance_batch']}, "
           f"quantized_gather_distance_batch "
           f"{serve['gist_int8']['quantized_gather_distance_batch']}, one-lane "
-          f"0 and 0; the JSON line's launches add them to the paths above",
-          flush=True)
+          f"0 and 0; the sharded path (build, searches, execute, serving; "
+          f"the oracles apart): gather_distance_batch "
+          f"{shard['gather_distance_batch']}, the others 0; the JSON line's "
+          f"launches add them to the paths above", flush=True)
     for name in GATHER_KERNELS:
-        kernels[name]["launches"] += db_path[name] + pf[name] + serve_path[name]
+        kernels[name]["launches"] += (db_path[name] + pf[name]
+                                      + serve_path[name] + shard[name])
     for name, entry in kernels.items():
         check(entry.get("launches", 0) > 0,
               f"{name}: launched no time on its path")

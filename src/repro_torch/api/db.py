@@ -38,6 +38,7 @@ import torch
 from repro_torch.api.plan_compile import ProgramCache
 from repro_torch.common.device import resolve_device
 from repro_torch.core.build import BuildStats
+from repro_torch.core.distributed import ShardedNavix
 from repro_torch.core.navix import NavixConfig, NavixIndex
 from repro_torch.core.search import SearchStats
 from repro_torch.query.operators import (KnnSearch, Plan, QueryResult,
@@ -108,11 +109,12 @@ class ResultSet:
 
 @dataclasses.dataclass
 class IndexEntry:
-    """One catalog entry: a named HNSW index over (table, vector column)."""
+    """One catalog entry: a named HNSW index over (table, vector column).
+    ``index`` is a NavixIndex or a ShardedNavix (shard-and-merge)."""
     name: str
     table: str
     column: str
-    index: NavixIndex
+    index: NavixIndex | ShardedNavix
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -162,21 +164,27 @@ class NavixDB:
     def register_index(self, name: str, index,
                        table: Optional[str] = None,
                        column: str = "embedding") -> IndexEntry:
-        """Adopt an already-built :class:`NavixIndex` on the database's
-        device (checkpoint restore, bench cache). When ``table`` is
-        omitted, the catalog binds to the unique node table with a matching
-        row count, creating a bare one if needed."""
+        """Adopt an already-built index on the database's device
+        (checkpoint restore, bench cache).
+
+        ``index`` may be a :class:`NavixIndex` or a
+        :class:`~repro_torch.core.distributed.ShardedNavix` (sharded entries
+        route ``execute`` through the sharded batched engine; its grid's
+        first cell is its device). When ``table`` is omitted, the catalog
+        binds to the unique node table with a matching row count, creating
+        a bare one if needed.
+        """
         if name in self.catalog:
             raise ValueError(f"index {name!r} already exists")
-        if not isinstance(index, NavixIndex):
+        sharded = isinstance(index, ShardedNavix)
+        if not (sharded or isinstance(index, NavixIndex)):
             raise TypeError(
                 f"index {name!r} is a {type(index).__name__}; the port's "
-                f"catalog holds NavixIndex entries only (sharded indexes "
-                f"wait for ROADMAP Queue 1 item 13)")
+                f"catalog holds NavixIndex and ShardedNavix entries")
         if index.device.type != self.device.type:
             raise ValueError(f"index {name!r} lives on {index.device}, but "
                              f"this database runs on {self.device}")
-        n = index.graph.n
+        n = index.n_total if sharded else index.graph.n
         if table is None:
             matches = [t for t, nt in self.store.nodes.items() if nt.n == n]
             if len(matches) > 1:
@@ -193,7 +201,7 @@ class NavixDB:
         entry.index.program_cache = self.programs
         self.catalog[entry.name] = entry
 
-    def index(self, name: str) -> NavixIndex:
+    def index(self, name: str) -> NavixIndex | ShardedNavix:
         return self.catalog[name].index
 
     def quantize_index(self, name: str, mmap_path=None) -> NavixIndex:
@@ -208,6 +216,9 @@ class NavixDB:
         residency, so the swap never collides with cached f32 entries.
         """
         entry = self.catalog[name]
+        if isinstance(entry.index, ShardedNavix):
+            raise ValueError(f"index {name!r} is sharded; quantized "
+                             f"residency applies to single-device indexes")
         entry.index = entry.index.quantize_resident(mmap_path=mmap_path)
         entry.index.program_cache = self.programs
         return entry.index
@@ -262,9 +273,11 @@ class NavixDB:
         selectivities. The plan must not also carry a selection subquery
         -- the caller has already run the per-request Q_S's.
 
-        ``alive`` quorum-masks the shards of a sharded index, which the
-        port does not have yet: passing it raises, as the reference does
-        for an unsharded entry.
+        When the resolved catalog entry is a ShardedNavix, the kNN
+        operator runs the sharded batched engine (every shard searched,
+        one global merge); ``alive`` (bool[S], default all alive)
+        quorum-masks the merge so dead shards contribute nothing. It
+        raises on an unsharded entry.
         """
         # builders carry their own bound query vector
         bound = getattr(plan, "bound_query", None)
@@ -311,30 +324,40 @@ class NavixDB:
         knn = parts.knn
         entry = self._resolve(knn, table)
         idx = entry.index
-        if idx.graph.n != self.store.node(table).n:
-            raise ValueError(f"index {entry.name!r} covers {idx.graph.n} "
+        sharded = isinstance(idx, ShardedNavix)
+        n_rows = idx.n_total if sharded else idx.graph.n
+        if n_rows != self.store.node(table).n:
+            raise ValueError(f"index {entry.name!r} covers {n_rows} "
                              f"rows but table {table!r} has "
                              f"{self.store.node(table).n}")
-        if alive is not None:
+        if sharded and engine != "batched":
+            raise ValueError(f"sharded index {entry.name!r} runs the "
+                             f"batched engine only, not {engine!r}")
+        if alive is not None and not sharded:
             raise ValueError(f"alive= quorum-masks sharded indexes; "
                              f"{entry.name!r} is unsharded")
 
         # stage 2: semimask packing (the SIP handoff to the device)
         t0 = time.perf_counter()
-        sel = (idx.full_semimask() if mask is None
-               else idx.pack_semimask(mask))
+        if sharded:
+            sel = (idx.full_semimask() if mask is None
+                   else idx.shard_semimask(mask))
+        else:
+            sel = (idx.full_semimask() if mask is None
+                   else idx.pack_semimask(mask))
         self._sync()
         timings.pack_ms = (time.perf_counter() - t0) * 1e3
 
         # per-lane masks carry per-lane selectivities
         sigmas = None
-        if sel.ndim == 2:
+        if sel.ndim == (3 if sharded else 2):
             sigmas = _host(idx.sigma(sel))
             sigma = float(sigmas.mean())
 
         # stage 3: the kNN operator through the program cache
         k = knn.k
-        if idx.is_quantized:
+        quantized = not sharded and idx.is_quantized
+        if quantized:
             # int8 residency: the beam runs on codes at FULL width (k ==
             # efs); the exact tier does the final cut to k in stage 3b
             efs_eff = max(knn.efs or 2 * k, k)
@@ -343,7 +366,10 @@ class NavixDB:
             params = idx._params(k, knn.efs or 2 * k, knn.heuristic)
         t0 = time.perf_counter()
         single = query.ndim == 1
-        if single:
+        if sharded:
+            res = self._run_sharded(idx, query, sel, params, max_batch,
+                                    alive)
+        elif single:
             res = self.programs.search(idx.graph, idx._prep_query(query),
                                        sel, params, sigma)
         else:
@@ -356,7 +382,7 @@ class NavixDB:
         timings.search_ms = (time.perf_counter() - t0) * 1e3
 
         # stage 3b: exact-tier re-rank (quantized residency only)
-        if idx.is_quantized:
+        if quantized:
             t0 = time.perf_counter()
             Qp = _host(idx._prep_query(query))
             if single:
@@ -376,6 +402,36 @@ class NavixDB:
         return ResultSet(table=table, ids=ids, dists=dists, columns=columns,
                          sigma=sigma, timings=timings, stats=stats,
                          mask=mask, sigmas=sigmas)
+
+    def _run_sharded(self, sn, query, sel, params, max_batch, alive):
+        """Sharded kNN through the program cache's ``sharded`` arm; a
+        single query is lifted to a one-lane batch and sliced back."""
+        single = query.ndim == 1
+        Q = torch.atleast_2d(sn._prep_query(query))
+        alive = (np.ones(sn.n_shards, bool) if alive is None
+                 else np.asarray(alive, bool))
+        if alive.shape != (sn.n_shards,):
+            raise ValueError(f"alive mask has shape {alive.shape}; index "
+                             f"has {sn.n_shards} shards")
+
+        def run(Qc, selc):
+            return self.programs.search_sharded(sn, Qc, selc, alive, params)
+
+        if not max_batch or Q.shape[0] <= max_batch:
+            res = run(Q, sel)
+        else:
+            chunks = [run(Q[i:i + max_batch],
+                          sel[:, i:i + max_batch] if sel.ndim == 3 else sel)
+                      for i in range(0, Q.shape[0], max_batch)]
+            res = type(chunks[0])(
+                dists=torch.cat([c.dists for c in chunks]),
+                ids=torch.cat([c.ids for c in chunks]),
+                stats=SearchStats(*(torch.cat(f) for f in
+                                    zip(*(c.stats for c in chunks)))))
+        if single:
+            res = type(res)(dists=res.dists[0], ids=res.ids[0],
+                            stats=SearchStats(*(f[0] for f in res.stats)))
+        return res
 
     def _run_batch(self, idx, query, sel, params, sigma, max_batch,
                    engine="batched"):

@@ -16,7 +16,9 @@ else of the reference:
   result sliced back), so a serving engine draining groups of 17, then 19,
   then 23 requests makes one entry, not three;
 * the ``engine`` arm keeps the batched-frontier engine ("batched") and the
-  vmap oracle ("vmap") apart, and the ``resident`` arm f32 and int8 stores.
+  vmap oracle ("vmap") apart, the ``resident`` arm f32 and int8 stores,
+  and the ``sharded`` arm a ShardedNavix's search over its device grid
+  (:meth:`ProgramCache.search_sharded`).
 
 An entry exists so that a captured CUDA graph of the engine's loop can
 later hang on its (key, bucket). The cache is owned by
@@ -55,10 +57,14 @@ class ProgramKey(NamedTuple):
                                    # two batch engines are distinct programs
     per_lane_sel: bool = False     # [B, W] per-lane semimasks (mixed-plan
                                    # batches) vs one shared [W] mask
-    sharded: int = 0               # shard count S of a sharded program
-                                   # (0 = unsharded; the port has no
-                                   # sharded arm yet)
-    lane_shards: int = 1           # data-axis size of a sharded mesh
+    sharded: int = 0               # shard count S of a ShardedNavix
+                                   # program (0 = unsharded) -- the MODEL
+                                   # axis: every shard searches its own
+                                   # subgraph and the results merge
+    lane_shards: int = 1           # DATA-axis size of the grid: the lane
+                                   # (batch) dim splits into this many
+                                   # blocks; batch buckets are rounded up
+                                   # to a multiple of it
     resident: str = "f32"          # device residency of the vector store:
                                    # "f32" (dense rows) | "int8" (codes +
                                    # per-vector scales) -- distinct
@@ -88,9 +94,11 @@ def _bucket(b: int) -> int:
     return out
 
 
-def _pad_rows(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """``x`` with ``pad`` copies of its first row appended."""
-    return torch.cat([x, x[:1].expand((pad,) + x.shape[1:])])
+def _pad_rows(x: torch.Tensor, pad: int, dim: int = 0) -> torch.Tensor:
+    """``x`` with ``pad`` copies of its first row along ``dim`` appended."""
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.narrow(dim, 0, 1).expand(shape)], dim=dim)
 
 
 class ProgramCache:
@@ -198,9 +206,49 @@ class ProgramCache:
                                    *(s[:b] for s in res.stats)))
         return res
 
-    def search_sharded(self, *args, **kwargs):
-        """The sharded arm waits for the port's sharding (ROADMAP Queue 1
-        item 13)."""
-        raise NotImplementedError(
-            "ProgramCache.search_sharded: the port has no sharded index yet "
-            "(ROADMAP Queue 1 item 13)")
+    def search_sharded(self, sn, Q: torch.Tensor, sel_bits: torch.Tensor,
+                       alive, params: SearchParams) -> SearchResult:
+        """Sharded batched search through the cache (the ``sharded`` key
+        arm): the ShardedNavix's search program, the batched-frontier
+        engine on every shard + one global merge.
+
+        ``sel_bits`` is shared ``[S, W]`` or per-lane ``[S, B, W]``
+        (padded along the lane axis with the batch bucket, which is
+        rounded up to a multiple of the grid's data axis); the padding is
+        made where the tensors lie, as ``_run_batched`` makes it. The key
+        carries the grid's devices, so two same-shape indexes on different
+        devices never share an entry.
+        """
+        per_lane = sel_bits.ndim == 3
+        b = Q.shape[0]
+        bb = _bucket(b)
+        ls = sn.lane_shards
+        if bb % ls:
+            # the data axis splits the lane dim; the padded bucket must
+            # divide evenly
+            bb = -(-bb // ls) * ls
+        if bb != b:
+            pad = bb - b
+            Q = _pad_rows(Q, pad)
+            if per_lane:
+                sel_bits = _pad_rows(sel_bits, pad, dim=1)
+        g = sn.graphs[0]
+        key = ProgramKey(
+            n=sn.n_total, dim=sn.dim, k=params.k, efs=params.efs,
+            heuristic=params.heuristic, metric=params.metric,
+            batch_shape=bb,
+            knobs=(params.ub, params.lf, params.two_hop_cap,
+                   params.max_iters, sn.n_local, g.m_l, g.n_upper, g.m_u,
+                   sn.model_axis, sn.data_axis,
+                   tuple(str(d) for d in sn.mesh.flat())),
+            engine="batched", per_lane_sel=per_lane, sharded=sn.n_shards,
+            lane_shards=ls)
+        prog = self._lookup(key)
+        if prog is None:
+            prog = self._programs[key] = sn._program("search", params)
+        res = prog(sn.graphs, Q, sel_bits, alive)
+        if bb != b:
+            res = SearchResult(dists=res.dists[:b], ids=res.ids[:b],
+                               stats=type(res.stats)(
+                                   *(s[:b] for s in res.stats)))
+        return res

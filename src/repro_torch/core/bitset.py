@@ -191,6 +191,19 @@ def broadcast_lanes(bits: torch.Tensor, bsz: int) -> torch.Tensor:
     return bits
 
 
+def broadcast_shard_lanes(bits: torch.Tensor, bsz: int) -> torch.Tensor:
+    """Normalize a shard-stacked semimask to per-lane form: [S, W] ->
+    [S, B, W] (a stride-0 view, like :func:`broadcast_lanes`); [S, B, W]
+    passes through after a lane-count check."""
+    if bits.ndim == 2:
+        s, w = bits.shape
+        return bits[:, None, :].expand(s, bsz, w)
+    if bits.shape[1] != bsz:
+        raise ValueError(f"per-lane sharded semimask has {bits.shape[1]} "
+                         f"lanes but the batch has {bsz}")
+    return bits
+
+
 def full_mask(n: int, device: torch.device, value: bool = True) -> torch.Tensor:
     """All-selected (or empty) mask over n nodes; tail padding bits clear."""
     w = n_words(n)

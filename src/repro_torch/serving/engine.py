@@ -25,10 +25,16 @@ The search engine mirrors a production vector-serving tier over the
     protocol (warm-up + repeats) is implemented in the benchmark harness
     on top of this engine.
 
-The reference also serves a sharded index through both schedulers, with
-an ``alive`` shard mask; the port's sharding waits for ROADMAP Queue 1
-item 13, so a sharded index, or ``alive=`` on an unsharded one, raises.
-``greedy_generate`` waits for the port's transformer (item 17).
+The same schedulers serve a
+:class:`~repro_torch.core.distributed.ShardedNavix`: the continuous
+scheduler's lane state gains the shard grid (refill masks apply to every
+shard's copy of a lane) and converged lanes merge across shards at
+finalize under the engine's ``alive`` mask, or the mask its
+``heartbeats`` monitor derives. A shard marked dead mid-drain degrades
+recall, not availability: responses finalized under a partial quorum are
+flagged ``degraded`` and hold no id of a dead shard. ``alive=`` on an
+unsharded index raises. ``greedy_generate`` waits for the port's
+transformer (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import numpy as np
 
 from repro_torch.api.db import NavixDB
 from repro_torch.api.plan_compile import _bucket
+from repro_torch.core.distributed import ShardedNavix
 from repro_torch.query.operators import (KnnSearch, Plan, is_selection,
                                          output_table, split_pipeline)
 from repro_torch.serving.lanes import LaneBatch
@@ -152,6 +159,8 @@ class SearchEngine:
     Construct either from a ``db`` (preferred; serves declarative plans
     against its catalog) or from a bare ``index`` (+ optional ``store``),
     which is wrapped into a single-index NavixDB on the index's device.
+    ``index`` may be a :class:`ShardedNavix`: both schedulers then run the
+    sharded batched engine under the engine's shard liveness.
     """
     index: Optional[object] = None
     store: Optional[GraphStore] = None
@@ -176,10 +185,16 @@ class SearchEngine:
                                            # (compaction) is worth a device
                                            # call; 0 = auto (batch size / 2)
     alive: Optional[np.ndarray] = None     # shard liveness (sharded indexes
-                                           # only, ROADMAP Queue 1 item 13):
-                                           # must stay None here
-    heartbeats: Optional[object] = None    # a HeartbeatMonitor (sharded
-                                           # indexes only, as ``alive``)
+                                           # only): bool[S], None = all
+                                           # alive; may flip mid-drain --
+                                           # lanes finalized under a partial
+                                           # quorum come back degraded
+    heartbeats: Optional[object] = None    # a HeartbeatMonitor: shard
+                                           # liveness DERIVED from per-shard
+                                           # heartbeat staleness at every
+                                           # finalize instead of a caller-
+                                           # set mask (mutually exclusive
+                                           # with ``alive``)
     step_hook: Optional[Callable] = None   # called after every continuous-
                                            # scheduler device step with a
                                            # progress dict (telemetry)
@@ -461,14 +476,20 @@ class SearchEngine:
         parts = split_pipeline(plan)
         entry = self.db._resolve(parts.knn,
                                  output_table(plan, self.db.store))
-        # every catalog entry of the port is unsharded (ROADMAP Queue 1
-        # item 13)
-        if self.alive is not None:
+        sharded = isinstance(entry.index, ShardedNavix)
+        if self.alive is not None and not sharded:
             raise ValueError("engine.alive quorum-masks sharded indexes; "
                              f"index {entry.name!r} is unsharded")
+        # one liveness read for the whole group, as the continuous
+        # scheduler reads one a finalize
+        alive = (resolve_alive(entry.index.n_shards, self.alive,
+                               self.heartbeats) if sharded else None)
+        degraded = bool(sharded and not alive.all())
         t1 = time.perf_counter()
+        # engine passes through: db.execute rejects "vmap" on a sharded
+        # index rather than this layer silently overriding it
         rs = self.db.execute(plan, query=Q, max_batch=self.max_batch,
-                             engine=self.engine)
+                             engine=self.engine, alive=alive)
         # the prefilter ran once for the whole group: amortize its cost
         # (and the semimask pack) across the group's requests so the
         # latency summary reflects what each request actually paid
@@ -482,7 +503,8 @@ class SearchEngine:
             responses.append(Response(
                 rid=r.rid, ids=rs.ids[j], dists=rs.dists[j],
                 queue_ms=queue_ms, exec_ms=exec_ms,
-                prefilter_ms=pf_share, sigma=rs.sigma))
+                prefilter_ms=pf_share, sigma=rs.sigma,
+                degraded=degraded))
         return responses
 
     def latency_summary(self) -> dict:

@@ -8,9 +8,8 @@ periodically, and a shard whose last beat is older than ``stale_after``
 seconds is considered dead at the moment of each finalize. A sharded
 index applies ``alive`` only at the finalize merge (per-shard beams are
 independent), so a shard going stale MID-search yields exactly the
-alive-restricted answer. The port has no sharded index yet (ROADMAP Queue
-1 item 13): the monitor stands alone, and a service over an unsharded
-index rejects it (``engine.resolve_alive``).
+alive-restricted answer. A service or engine over an unsharded index
+rejects a monitor (``engine.resolve_alive``).
 
 The monitor is clock-injectable (tests drive a fake clock) and exposes
 ``suppress(shard)`` to simulate a straggler: beats from a suppressed

@@ -8,10 +8,11 @@ of ``repro_torch.core.search_batch`` (``parked_state`` / ``engine_refill``
 / ``engine_steps`` / ``engine_finalize`` / ``engine_evict``). This module
 holds that machine so the two drivers stay in bitwise lockstep:
 
-* ``_FlatLanes`` -- the lane operations over an unsharded
-  :class:`NavixIndex`. The reference's ``_ShardLanes`` waits for the
-  port's sharding (ROADMAP Queue 1 item 13): ``make_backend`` raises for
-  anything else;
+* ``_FlatLanes`` / ``_ShardLanes`` -- the backend split: the same lane
+  operations over an unsharded :class:`NavixIndex` or a
+  :class:`ShardedNavix` (whose semimask buffers gain a leading shard dim,
+  whose state is one block a grid cell, and whose ``finalize`` merges the
+  per-shard beams under an ``alive`` quorum mask);
 * :class:`LaneBatch` -- host-side buffer management + the device calls:
   ``admit`` (fill free lanes with new requests), ``step`` (advance
   ``n_steps`` loop iterations, report per-lane liveness), ``finalize``
@@ -49,6 +50,7 @@ import torch
 
 from repro_torch.core import bitset
 from repro_torch.core import search_batch as sb
+from repro_torch.core.distributed import ShardedNavix
 from repro_torch.core.navix import NavixIndex
 
 
@@ -126,20 +128,76 @@ class _FlatLanes:
         return sb.engine_evict(st, udc, torch.from_numpy(np.array(evict)))
 
 
-def _require_flat(idx) -> None:
-    if not isinstance(idx, NavixIndex):
-        raise NotImplementedError(
-            f"serving a {type(idx).__name__}: the port serves NavixIndex "
-            f"entries only; sharded indexes (_ShardLanes) wait for ROADMAP "
-            f"Queue 1 item 13")
+class _ShardLanes(_FlatLanes):
+    """The same lane operations over a :class:`ShardedNavix`: semimask
+    buffers gain a leading shard dim ([S, B, W] words), the state is the
+    index's per-cell blocks, and ``finalize`` merges the per-shard beams
+    into the global top-efs under the current ``alive`` mask. Lane
+    buffers live on the grid's first cell, where the programs slice them
+    per cell."""
+
+    def __init__(self, sn: ShardedNavix, params):
+        self.sn, self.params = sn, params
+        self.device = sn.device
+        self.n_shards = sn.n_shards
+        self.lane_multiple = sn.lane_shards
+        # sharded indexes stay f32-resident (no quantized tier)
+        self.exact = None
+        self._refill = sn.refill_program(params)
+        self._steps = sn.steps_program(params)
+        # beams-only finalize: the merged ids/dists of finalize_program
+        # bit for bit, minus the stats reduction the drivers discard
+        self._finalize = sn.finalize_beams_program(params)
+        self._evict = sn.evict_program(params)
+        self._full = sn.shard_semimask_np(np.ones(sn.n_total, bool))
+
+    def pack_row(self, mask) -> np.ndarray:
+        m = np.asarray(mask)
+        if m.dtype == np.uint32:
+            return m                                           # [S, W]
+        return self.sn.shard_semimask_np(m)                    # [S, W]
+
+    def sel_buffer(self, bsz: int) -> np.ndarray:
+        return np.zeros((self.n_shards, bsz, self.sn.n_words_local),
+                        np.uint32)
+
+    def set_lane(self, selh: np.ndarray, i: int, row: np.ndarray) -> None:
+        selh[:, i] = row
+
+    def parked(self, bsz: int):
+        return self.sn.parked_state(bsz, self.params)
+
+    def refill(self, Qj, selj, st, udc, refill):
+        return self._refill(self.sn.graphs, Qj, selj, st, udc, refill)
+
+    def steps(self, Qj, selj, st, n_steps, sigj, efsj):
+        # sigj unused: each shard's lanes estimate selectivity against
+        # their own slice of S (lane-local, shard-local)
+        return self._steps(self.sn.graphs, Qj, selj, st, n_steps,
+                           efs_lanes=efsj)
+
+    def finalize(self, st, udc, alive):
+        d, ids = self._finalize(st, udc, alive)
+        return ids, d
+
+    def evict(self, st, udc, evict):
+        return self._evict(st, udc, np.array(evict))
+
+
+def _backend_class(idx):
+    """The backend split: :class:`ShardedNavix` -> ``_ShardLanes``,
+    :class:`NavixIndex` -> ``_FlatLanes``; anything else raises."""
+    if isinstance(idx, ShardedNavix):
+        return _ShardLanes
+    if isinstance(idx, NavixIndex):
+        return _FlatLanes
+    raise TypeError(f"serving a {type(idx).__name__}: the port serves "
+                    f"NavixIndex and ShardedNavix entries")
 
 
 def make_backend(idx, params):
-    """The backend of a catalog index: ``_FlatLanes`` over a
-    :class:`NavixIndex`. A sharded index raises: its ``_ShardLanes`` waits
-    for ROADMAP Queue 1 item 13."""
-    _require_flat(idx)
-    return _FlatLanes(idx, params)
+    """The lane backend that serves ``idx`` under ``params``."""
+    return _backend_class(idx)(idx, params)
 
 
 class LaneBatch:
@@ -155,15 +213,18 @@ class LaneBatch:
 
     def __init__(self, idx, heuristic: str, k_cap: int, efs_cap: int,
                  bsz: int):
-        _require_flat(idx)
+        backend = _backend_class(idx)   # a non-index raises by name first
         self.params = idx._params(k_cap, efs_cap, heuristic)
-        self.backend = make_backend(idx, self.params)
+        self.backend = backend(idx, self.params)
+        # data-axis backends split the lane dim into lane_multiple
+        # blocks; round the batch up so it divides evenly
         lm = self.backend.lane_multiple
         bsz = -(-bsz // lm) * lm
         self.bsz = bsz
         self.k_cap, self.efs_cap = k_cap, efs_cap
         self.device = self.backend.device
-        self.Qh = np.zeros((bsz, idx.graph.dim), np.float32)
+        dim = idx.dim if isinstance(idx, ShardedNavix) else idx.graph.dim
+        self.Qh = np.zeros((bsz, dim), np.float32)
         self.selh = self.backend.sel_buffer(bsz)
         self.sigh = np.ones((bsz,), np.float32)
         # per-lane efs: free/uniform lanes sit at the cap (the masked

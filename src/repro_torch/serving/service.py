@@ -23,9 +23,14 @@ advances in ``step_iters``-sized chunks, and between chunks it
 Every device call runs on the thread that drives the loop (the background
 thread, or the caller of ``_tick``). Client threads do host work only:
 the prefilter and its pack (numpy), and the query's prep, copied back to
-the host. The reference derives shard liveness from heartbeats
-(:class:`HeartbeatMonitor`); the port's indexes are unsharded (ROADMAP
-Queue 1 item 13), so ``alive=`` or ``heartbeats=`` raises here.
+the host.
+
+Shard liveness of a sharded entry is a static ``alive`` mask or
+heartbeat-derived (:class:`HeartbeatMonitor`): the mask is recomputed at
+every finalize, so a straggler shard flips responses to ``degraded``
+automatically. Because :class:`ShardedNavix` masks shards only at the
+finalize merge, answers under a stale shard equal the alive-restricted
+search exactly. Either on an unsharded entry raises.
 
 Drive it with the background thread (``start()`` / ``shutdown()``) or
 tick it by hand (``_tick()``) for deterministic tests. ``shutdown``
@@ -114,9 +119,9 @@ class SearchService:
         self.alive = alive
         self.heartbeats = heartbeats
         # fail fast on an inconsistent liveness config instead of at the
-        # first finalize (mid-service, inside the device loop); the port's
-        # catalog entries are unsharded
-        resolve_alive(0, alive, heartbeats)
+        # first finalize (mid-service, inside the device loop)
+        resolve_alive(getattr(self.entry.index, "n_shards", 0), alive,
+                      heartbeats)
         self.lanes = LaneBatch(self.entry.index, heuristic, k_cap,
                                self.efs_cap, _bucket(max(1, max_batch)))
         self.queue = queue if queue is not None else SubmissionQueue(

@@ -637,9 +637,9 @@ def test_register_index_binds_a_table_by_row_count(wikidb):
 
 def test_register_rejects_what_the_port_cannot_hold(wikidb):
     _, tdb, jidx, *_ = wikidb
-    with pytest.raises(TypeError, match="item 13"):
+    with pytest.raises(TypeError, match="NavixIndex and ShardedNavix"):
         tdb.register_index("sharded", object())
-    with pytest.raises(TypeError, match="item 13"):
+    with pytest.raises(TypeError, match="NavixIndex and ShardedNavix"):
         tdb.register_index("jax_index", jidx)
     with pytest.raises(ValueError, match="already exists"):
         tdb.register_index("chunk_emb", _port_handle(jidx))
@@ -647,15 +647,14 @@ def test_register_rejects_what_the_port_cannot_hold(wikidb):
 
 def test_serve_waits_for_the_serving_slice(wikidb):
     """The serving slice has landed: ``serve()`` returns a live service on
-    the database's device; the sharded arm still waits for item 13."""
+    the database's device. (The sharded arm of the cache has landed too:
+    ``tests/test_torch_serving_sharded.py``.)"""
     from repro_torch.serving import SearchService
     _, tdb, *_ = wikidb
     svc = tdb.serve(k_cap=4, efs_cap=8, max_batch=2)
     assert isinstance(svc, SearchService)
     assert svc.entry.name == "chunk_emb" and svc.lanes.device.type == "cpu"
     assert svc.shutdown(timeout=60)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdb.programs.search_sharded(None, None, None, None, None)
 
 
 def test_navix_db_defaults_to_the_card(monkeypatch):

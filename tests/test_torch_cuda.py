@@ -568,3 +568,61 @@ def test_continuous_equals_search_many_on_the_card(cuda):
             r = results[sched][j]
             assert np.array_equal(r.ids, want.ids[0].cpu().numpy()), sched
             assert np.array_equal(r.dists, want.dists[0].cpu().numpy())
+
+
+def test_sharded_search_on_one_card_equals_its_cpu_copy(cuda):
+    """Four shards on one card (a (1, 4) grid, every cell cuda:0), one of
+    them dead: the search equals the on-card oracle (the unsharded engine
+    per shard + numpy lexsort) bit for bit, launches kernel 1, and equals
+    the same shards' search on a CPU grid in >= 99% of lanes (kernel 1
+    sums in another order than the plain version, so a near tie may flip
+    a lane). A (2, 4) grid whose second row is the CPU agrees the same
+    way and copies each shard there once."""
+    from repro_torch.core.distributed import (ShardedNavix, make_mesh,
+                                              per_shard_reference)
+    X, _, centers = gaussian_mixture(4001, 32, 10, seed=0)
+    sn = ShardedNavix.build(X, NavixConfig(m_u=8, ef_construction=64),
+                            make_mesh((1, 4), device=cuda))
+    assert sn.device == torch.device("cuda", torch.cuda.current_device())
+    assert all(g.device == sn.device for g in sn.graphs)
+    cpu = ShardedNavix(mesh=make_mesh((1, 4), device="cpu"),
+                       graphs=[g.to(torch.device("cpu")) for g in sn.graphs],
+                       n_local=sn.n_local, n_total=sn.n_total,
+                       config=sn.config)
+    rng = np.random.default_rng(1)
+    Q = (centers[rng.integers(0, 10, 256)]
+         + 0.3 * rng.normal(size=(256, 32))).astype(np.float32)
+    sigmas = (1.0, 0.4, 0.1, 0.0, 0.03, 0.7)
+    masks = np.stack([rng.random(len(X)) < sigmas[j % len(sigmas)]
+                      for j in range(len(Q))])
+    alive = np.array([True, True, False, True])
+    before = gather_distance.LAUNCHES
+    res = sn.search_many(Q, semimask=masks, k=10, efs=40, alive=alive)
+    assert gather_distance.LAUNCHES > before
+    d, ids, stats = per_shard_reference(sn, Q, masks, sn._params(10, 40,
+                                        "adaptive_local"), alive=alive)
+    assert np.array_equal(res.ids.cpu().numpy(), ids)
+    assert np.array_equal(res.dists.cpu().numpy(), d)
+    for f in res.stats._fields:
+        assert np.array_equal(getattr(res.stats, f).cpu().numpy(),
+                              getattr(stats, f))
+    got = res.ids.cpu().numpy()
+    assert not ((got >= 2 * sn.n_local) & (got < 3 * sn.n_local)).any()
+    want = cpu.search_many(Q, semimask=masks, k=10, efs=40,
+                           alive=alive).ids.numpy()
+    assert (got == want).all(axis=1).mean() >= 0.99
+    # a grid whose rows differ: the card's shards are copied once to the
+    # CPU row, and that row's lane block runs there
+    mixed = ShardedNavix(mesh=make_mesh((2, 4), device=[cuda] * 4
+                                        + ["cpu"] * 4),
+                         graphs=sn.graphs, n_local=sn.n_local,
+                         n_total=sn.n_total, config=sn.config)
+    outs = [mixed.search_many(Q, semimask=masks, k=10, efs=40,
+                              alive=alive).ids.cpu().numpy()
+            for _ in range(2)]
+    assert np.array_equal(outs[0], outs[1])
+    assert (outs[0] == got).all(axis=1).mean() >= 0.99
+    assert sorted(mixed._replicas) == [(s, torch.device("cpu"))
+                                       for s in range(4)]
+    assert all(rep[0] is sn.graphs[s] and rep[1].device.type == "cpu"
+               for (s, _), rep in mixed._replicas.items())

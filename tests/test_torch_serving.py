@@ -184,13 +184,14 @@ def test_batched_requests(port_index, queries):
 
 
 def test_what_waits_for_later_items_raises(port_index):
-    """Sharded serving waits for ROADMAP Queue 1 item 13 and LM generation
-    for item 17."""
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """LM generation waits for ROADMAP Queue 1 item 17. Sharded serving
+    has landed (``tests/test_torch_serving_sharded.py``); what is neither
+    a NavixIndex nor a ShardedNavix is refused by name."""
+    with pytest.raises(TypeError, match="NavixIndex and ShardedNavix"):
         make_backend(object(), None)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="NavixIndex and ShardedNavix"):
         LaneBatch(object(), "adaptive_local", K, EFS, 2)
-    with pytest.raises(TypeError, match="item 13"):
+    with pytest.raises(TypeError, match="NavixIndex and ShardedNavix"):
         SearchEngine(index=SimpleNamespace(device=torch.device("cpu")),
                      store=_store(10))
     with pytest.raises(NotImplementedError, match="item 17"):
