@@ -44,7 +44,14 @@ mask, under a quorum and on a data = 2 grid, each bit for bit against the
 on-card oracle ``per_shard_reference`` or the data = 1 answer, then through
 ``NavixDB.execute(alive=...)``, the continuous scheduler (each request
 against the one-shot search of its group) and a live service whose last
-shard's heartbeats stop mid-drain.
+shard's heartbeats stop mid-drain; then it saves that sharded index
+through the checkpoint store, loads it back onto the card and holds one
+pass against the pass before the save, bit for bit (``[ckpt]``). The
+runtime guards watch phases that already run (``[guards]``): one
+``CompileCounter`` over the run (no nvcc after the kernel builds, no
+program entry in ``[db]``'s and ``[serve]``'s steady traffic),
+``[serve]`` under the in-flight guard of ``LaneBatch``, and both live
+services under the lock-order monitor.
 Each phase prints one line or two; a failed
 phase raises, so the script exits non-zero and prints no ``ok`` line. The
 last three lines are the card's name and power limit, a JSON line of
@@ -62,6 +69,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -75,7 +83,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # the port itself: without the repository around this file these imports
 # fail, before anything is printed
+from repro_torch.analysis.runtime import (CompileCounter,  # noqa: E402
+                                          guard_donation, instrument_locks)
 from repro_torch.api import NavixDB  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.common.hardware import TARGET, bound_s  # noqa: E402
+from repro_torch.common.util import tree_bytes, tree_leaves  # noqa: E402
 from repro_torch.configs.navix_paper import (PAPER_INDEX,  # noqa: E402
                                              SELECTIVITIES)
 from repro_torch.core.distances import brute_force_topk  # noqa: E402
@@ -83,7 +96,7 @@ from repro_torch.core.distributed import (ShardedNavix,  # noqa: E402
                                           make_mesh, per_shard_reference,
                                           reference_merge, shard_searches)
 from repro_torch.core.graph import check_symmetric_fraction  # noqa: E402
-from repro_torch.core.navix import NavixIndex  # noqa: E402
+from repro_torch.core.navix import NavixConfig, NavixIndex  # noqa: E402
 from repro_torch.core.quantize import QuantizedStore, quantize  # noqa: E402
 from repro_torch.data.synthetic import (WikiLike,  # noqa: E402
                                         correlation_ratio, gaussian_mixture,
@@ -113,18 +126,14 @@ PARITY_LANES = 8            # per sigma and per arm (f32, int8)
 PARITY_SIGMAS = (1.0, 0.1, 0.01)
 # kernel vs plain version: a different f32 summation order
 RTOL, ATOL = 1e-5, 1e-4
-# the card's memory rate, f32 rate outside the tensor cores and dense TF32
-# and BF16 rates (H100 SXM data sheet) for the bounds
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-TF32_FLOPS_PER_S = 495e12
-BF16_FLOPS_PER_S = 989e12
 # f32-accurate tensor-core routes of the all-pairs kernels: (products a
-# product, their rate). f32 rows split 3xTF32 (kernel 5); int8 codes are
-# exact in TF32 and in BF16, so only Q splits: in three BF16 pieces (kernel
-# 6's route, the cheapest) or in two TF32 pieces (the route it did not keep)
-ROUTES = {"tf32x3": (3, TF32_FLOPS_PER_S), "tf32x2": (2, TF32_FLOPS_PER_S),
-          "bf16x3": (3, BF16_FLOPS_PER_S)}
+# product, their rate; the card's data-sheet rates, TARGET). f32 rows split
+# 3xTF32 (kernel 5); int8 codes are exact in TF32 and in BF16, so only Q
+# splits: in three BF16 pieces (kernel 6's route, the cheapest) or in two
+# TF32 pieces (the route it did not keep)
+ROUTES = {"tf32x3": (3, TARGET.peak_tf32_flops),
+          "tf32x2": (2, TARGET.peak_tf32_flops),
+          "bf16x3": (3, TARGET.peak_bf16_flops)}
 CHEAPEST_ROUTE = {4: "tf32x3", 1: "bf16x3"}
 # the reference's tolerances for the all-pairs kernels (tests/test_kernels.py)
 # and the segment sum's (summed in another order than index_add_'s atomics)
@@ -147,6 +156,9 @@ F64_ERR_RATIO = 4.0
 # kernel 7: meshgraphnet's ogb_products graph (configs/meshgraphnet.py) at its
 # d_hidden, edges padded to a multiple of 512
 OGB_NODES, OGB_EDGES, OGB_D = 2_449_029, 61_859_140, 128
+# kernel 7 and torch.segment_reduce timed in turns: rounds, calls a round
+SEGMENT_ROUNDS = 7
+SEGMENT_REPS = 3
 RETRIEVAL_ARCH = "bst"
 RETRIEVAL_REQUESTS = 8
 RETRIEVAL_K = 100
@@ -365,7 +377,7 @@ def gather_bound_ms(Q: torch.Tensor, ids: torch.Tensor,
     d = Q.shape[1]
     rows = int(torch.unique(ids[ids >= 0]).numel())
     nbytes = rows * row_bytes + 4 * bsz * k + 4 * bsz * d + 4 * bsz * k
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    return nbytes / TARGET.hbm_bandwidth * 1e3
 
 
 def kernel_entry(name: str, max_abs: float, timing: tuple,
@@ -379,16 +391,6 @@ def kernel_entry(name: str, max_abs: float, timing: tuple,
             "replaces": replaces, "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
-
-
-def bound(nbytes: float, flops: float, tc_flops: float = 0.0,
-          tc_rate: float = TF32_FLOPS_PER_S) -> tuple[float, str]:
-    """(least ms, what bounds it): the larger of the bytes over the memory
-    rate and the operations over their rates (f32 operations at the f32
-    rate, tensor-core operations at ``tc_rate``)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / F32_FLOPS_PER_S + tc_flops / tc_rate) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def device_ops(prof) -> list[tuple[str, float, int]]:
@@ -420,9 +422,15 @@ def phase_device() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     line = smi.stdout.strip().splitlines()[0]
+    props = torch.cuda.get_device_properties(0)
     print(f"[device] {line} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
-          flush=True)
+          f"{torch.version.cuda} | {props.name}: {props.multi_processor_count}"
+          f" SMs, {props.total_memory:,} B of device memory | TARGET "
+          f"{TARGET.name}: {TARGET.sm_count} SMs, {TARGET.hbm_bytes:,} B at "
+          f"{TARGET.hbm_bandwidth:.3e} B/s, dense bf16 "
+          f"{TARGET.peak_bf16_flops:.3e} / TF32 {TARGET.peak_tf32_flops:.3e} "
+          f"/ int8 {TARGET.peak_int8_ops:.3e} / f32 {TARGET.peak_f32_flops:.3e}"
+          f" op/s, {TARGET.smem_bytes:,} B shared memory a block", flush=True)
     return line
 
 
@@ -828,16 +836,19 @@ def _matrix_bound(b: int, n: int, d: int, code_bytes: int, metric: str,
     ``ROUTES``; by default the cheapest f32-accurate one for the operand,
     ``CHEAPEST_ROUTE``), and the norms' 2(b + n)d f32 flops for l2.
     ``route="f32"``: every flop at the f32 rate outside the tensor cores
-    (the bound of the earlier, CUDA-core kernels)."""
+    (the bound of the earlier, CUDA-core kernels). In milliseconds, from
+    ``repro_torch.common.hardware.bound_s``."""
     nbytes = 4 * b * d + code_bytes * n * d + 4 * b * n
     if code_bytes == 1:
         nbytes += 4 * n
     products = 2 * b * n * d
     norms = 2 * (b + n) * d if metric == "l2" else 0
     if route == "f32":
-        return bound(nbytes, products + norms)
-    k, rate = ROUTES[route or CHEAPEST_ROUTE[code_bytes]]
-    return bound(nbytes, norms, k * products, rate)
+        b_s, by = bound_s(nbytes, products + norms)
+    else:
+        k, rate = ROUTES[route or CHEAPEST_ROUTE[code_bytes]]
+        b_s, by = bound_s(nbytes, norms, k * products, rate)
+    return b_s * 1e3, by
 
 
 def _timing_line(name: str, rows: dict, library: str | None,
@@ -1125,13 +1136,22 @@ def phase_kernel_segment() -> dict:
     del got, via_ops, dst_minus
     row_ptr = segment_sum.row_pointers(dst_sent, n)
     lengths = torch.cat([row_ptr.diff(), e_pad - row_ptr[-1:]])
-    b_ms, by = bound(4 * e * d + 4 * e_pad + 4 * n * d, e * d)
-    t = (cuda_ms(lambda: segment_sum.csr_segment_sum(msgs, dst_sent, n),
-                 reps=5),
+    b_s, by = bound_s(4 * e * d + 4 * e_pad + 4 * n * d, e * d)
+    b_ms = b_s * 1e3
+    # the kernel and the library call in alternation (a, b, b, a, ...), so
+    # a drift of the card's clock hits both alike; each round's time is
+    # the mean of SEGMENT_REPS calls
+    calls = {"kernel": lambda: segment_sum.csr_segment_sum(msgs, dst_sent, n),
+             "library": lambda: torch.segment_reduce(
+                 msgs, "sum", lengths=lengths, axis=0, unsafe=True)}
+    rounds = {name: [] for name in calls}
+    for r in range(SEGMENT_ROUNDS):
+        for name in (calls if r % 2 == 0 else reversed(calls)):
+            rounds[name].append(cuda_ms(calls[name], reps=SEGMENT_REPS))
+    med = {name: float(np.median(v)) for name, v in rounds.items()}
+    t = (med["kernel"],
          cuda_ms(lambda: ref.csr_segment_sum(msgs, dst_sent, n), reps=3),
-         (b_ms, by),
-         cuda_ms(lambda: torch.segment_reduce(msgs, "sum", lengths=lengths,
-                                              axis=0, unsafe=True), reps=3))
+         (b_ms, by), med["library"])
     print(f"[kernel] csr_segment_sum == plain version (index_add_) on "
           f"ogb_products, n={n:,} E={e:,} (padded to {e_pad:,}) d={d}: max "
           f"abs err {max_abs:.3e} (rtol = atol = {SEGMENT_TOL}); the ops "
@@ -1140,23 +1160,24 @@ def phase_kernel_segment() -> dict:
     print(_timing_line("csr_segment_sum", {(n, e, d): t},
                        "torch.segment_reduce(sum, lengths)", "(n, E, d)"),
           flush=True)
+    lo = {name: min(v) for name, v in rounds.items()}
+    hi = {name: max(v) for name, v in rounds.items()}
+    overlap = lo["kernel"] <= hi["library"] and lo["library"] <= hi["kernel"]
+    print(f"[kernel] csr_segment_sum in turns with torch.segment_reduce, "
+          f"{SEGMENT_ROUNDS} rounds of {SEGMENT_REPS} calls: kernel median "
+          f"{med['kernel']:.4f} ms (range {lo['kernel']:.4f}-"
+          f"{hi['kernel']:.4f}), segment_reduce median {med['library']:.4f} "
+          f"ms (range {lo['library']:.4f}-{hi['library']:.4f}); kernel / "
+          f"library {med['kernel'] / med['library']:.4f}; the ranges "
+          f"{'overlap' if overlap else 'do not overlap'}; per round (ms): "
+          f"kernel {[round(x, 4) for x in rounds['kernel']]}, library "
+          f"{[round(x, 4) for x in rounds['library']]}", flush=True)
     del msgs, dst_sent, row_ptr, lengths
     torch.cuda.empty_cache()
     entry = kernel_entry("csr_segment_sum", max_abs, (t[0], t[1], b_ms), by,
                          t[3])
     entry["launches"] = launches
     return entry
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, tuple):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def phase_recsys() -> int:
@@ -1173,10 +1194,9 @@ def phase_recsys() -> int:
         torch.Generator(device="cuda").manual_seed(0), "cuda")
     sync()
     init_s = time.perf_counter() - t0
-    leaves = list(_leaves(params))
-    check(all(t.device.type == "cuda" for t in leaves),
+    check(all(t.device.type == "cuda" for t in tree_leaves(params)),
           "a parameter is not on the card")
-    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    nbytes = tree_bytes(params)
     step = model_api.make_retrieval_step(cfg, k=RETRIEVAL_K)
     batches = [model_api.make_batch(
         cfg, shape, torch.Generator(device="cuda").manual_seed(100 + r),
@@ -1766,10 +1786,12 @@ def _true_ids(idx, Q: np.ndarray, mask: np.ndarray) -> torch.Tensor:
 
 
 def phase_db(idx, qidx, labels: np.ndarray, centers: np.ndarray,
-             Q: np.ndarray) -> dict:
+             Q: np.ndarray, cc: CompileCounter) -> dict:
     """The paper's query through ``NavixDB.execute`` over the Wiki-shaped
     store. Returns each plan's mask and brute-force ids by name, and the
-    launches each entry's executes made."""
+    launches each entry's executes made. The timed traffic after the
+    warm-up (the re-execute, and the bucket's batches after its first)
+    runs in ``cc``'s phase ``db_steady`` and must make no program entry."""
     t_phase = time.perf_counter()
     wiki, arrays = make_wiki(idx, labels, centers)
     n = len(labels)
@@ -1824,9 +1846,11 @@ def phase_db(idx, qidx, labels: np.ndarray, centers: np.ndarray,
     knn = KnnSearch(child=base["sel"], k=K, efs=EFS, index="gist")
     # re-executing a plan adds a hit and no entry, and changes no bit
     info = db.programs.info()
+    cc.mark("db_steady")
     t0 = time.perf_counter()
     rs, made = counted(db.execute, knn, query=Q)
     again_s = time.perf_counter() - t0
+    cc.mark("steady")
     _add(launched["gist"], made)
     after = db.programs.info()
     check(after["hits"] == info["hits"] + 1
@@ -1836,11 +1860,15 @@ def phase_db(idx, qidx, labels: np.ndarray, centers: np.ndarray,
     # B = 17, 19, 23 share one bucket: one entry, and padding (and the
     # schedule a padded batch launches on) changes no lane
     entries = len(db.programs)
-    for b in BUCKET_BATCHES:
+    for j, b in enumerate(BUCKET_BATCHES):
+        cc.mark("steady" if j == 0 else "db_steady")   # the first warms it
         rs, made = counted(db.execute, knn, query=Q[:b])
         _add(launched["gist"], made)
         _same_rs(rs, base["rs"], f"[db] B={b} vs B={N_QUERIES}",
                  b_lanes=slice(0, b))
+    cc.mark("steady")
+    check(cc.count("program", "db_steady") == 0,
+          f"[db] the steady traffic made program entries: {cc.kinds}")
     check(len(db.programs) == entries + 1,
           f"[db] B={BUCKET_BATCHES} made {len(db.programs) - entries} "
           f"entries, not 1")
@@ -1908,6 +1936,11 @@ def phase_db(idx, qidx, labels: np.ndarray, centers: np.ndarray,
           f"{db.programs.info()}", flush=True)
     print(f"[db] launches by entry: f32 {f32}; int8 {int8}; phase "
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    print(f"[guards] [db] program entries: "
+          f"{cc.count('program', 'db_steady')} in the steady traffic (the "
+          f"re-execute and B={BUCKET_BATCHES[1:]} after B="
+          f"{BUCKET_BATCHES[0]} warmed the bucket); cache "
+          f"{db.programs.info()}", flush=True)
     launched["plans"] = out
     launched["db"] = db
     return launched
@@ -2023,115 +2056,153 @@ def _refills(hooks: list) -> tuple[int, int]:
     return total, live
 
 
-def phase_serve(db, plans: dict) -> dict:
+def phase_serve(db, plans: dict, cc: CompileCounter) -> dict:
     """The serving tier over the [db] phase's database: the f32 entry
     through the continuous and the grouped scheduler and the live service,
     the int8 entry through both schedulers. Returns the launches each
-    entry's serving made."""
+    entry's serving made. All of it runs under the in-flight guard
+    (``guard_donation``), the service also under the lock-order monitor;
+    the stepping-API traffic (both continuous drains and the service) runs
+    in ``cc``'s phase ``serve_steady`` and must make no program entry, and
+    the grouped drains' entries (their warm-up) must equal the cache's
+    misses. The stepping path holds no ``ProgramCache``, so
+    ``serve_steady`` reads 0 by construction until a kind that hooks that
+    path (a CUDA-graph capture) exists; the grouped drains' check is the
+    one here that can fail."""
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     launched, lines = {"gist": {}, "gist_int8": {}}, []
     reqs = _serve_requests(plans, SERVE_REQUESTS, SERVE_PLANS, "gist")
+    with guard_donation() as g_don:
+        # f32, continuous: ragged beams, refills while other lanes are live
+        eng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
+                           step_iters=SERVE_STEP_ITERS)
+        hooks: list = []
+        cc.mark("serve_steady")
+        (cont, wall), made = counted(_drain, eng, reqs, hooks)
+        cc.mark("steady")
+        _add(launched["gist"], made)
+        refills, refills_live = _refills(hooks)
+        check(refills_live > 0,
+              "[serve] no refill while other lanes were live")
+        lines.append(_serve_line("f32 continuous", eng, wall, len(reqs))
+                     + f"; refills {refills} ({refills_live} while other "
+                     f"lanes were live)")
+        # f32, grouped: one execute a plan, equal per rid bit for bit
+        geng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
+                            scheduler="grouped")
+        made_before = (cc.count("program"), db.programs.stats.misses)
+        (grp, wall), made = counted(_drain, geng, reqs)
+        _add(launched["gist"], made)
+        _same_responses(cont, grp, "continuous vs grouped (f32)")
+        lines.append(_serve_line("f32 grouped", geng, wall, len(reqs)))
 
-    # f32, continuous: ragged beams, refills while other lanes are live
-    eng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
-                       step_iters=SERVE_STEP_ITERS)
-    hooks: list = []
-    (cont, wall), made = counted(_drain, eng, reqs, hooks)
-    _add(launched["gist"], made)
-    refills, refills_live = _refills(hooks)
-    check(refills_live > 0, "[serve] no refill while other lanes were live")
-    lines.append(_serve_line("f32 continuous", eng, wall, len(reqs))
-                 + f"; refills {refills} ({refills_live} while other lanes "
-                 f"were live)")
-    # f32, grouped: one execute a plan, equal per rid bit for bit
-    geng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH, scheduler="grouped")
-    (grp, wall), made = counted(_drain, geng, reqs)
-    _add(launched["gist"], made)
-    _same_responses(cont, grp, "continuous vs grouped (f32)")
-    lines.append(_serve_line("f32 grouped", geng, wall, len(reqs)))
+        # the live service, built and run under the lock-order monitor:
+        # two client threads, SERVICE_EXPIRED requests past their deadline
+        # submitted before the loop starts (so the first tick expires them
+        # before any admission), the rest while it runs
+        cc.mark("serve_steady")
+        with instrument_locks() as locks:
+            svc = db.serve(index="gist", k_cap=K, efs_cap=EFS,
+                           max_batch=SERVICE_MAX_BATCH,
+                           step_iters=SERVE_STEP_ITERS,
+                           queue_size=2 * SERVICE_REQUESTS)
+            futs = {}
+            per_client = SERVICE_REQUESTS // SERVICE_CLIENTS
+            expired_each = SERVICE_EXPIRED // SERVICE_CLIENTS
+            ready = threading.Barrier(SERVICE_CLIENTS + 1)
 
-    # the live service: two client threads, SERVICE_EXPIRED requests past
-    # their deadline submitted before the loop starts (so the first tick
-    # expires them before any admission), the rest while it runs
-    svc = db.serve(index="gist", k_cap=K, efs_cap=EFS,
-                   max_batch=SERVICE_MAX_BATCH, step_iters=SERVE_STEP_ITERS,
-                   queue_size=2 * SERVICE_REQUESTS)
-    futs = {}
-    per_client = SERVICE_REQUESTS // SERVICE_CLIENTS
-    expired_each = SERVICE_EXPIRED // SERVICE_CLIENTS
-    ready = threading.Barrier(SERVICE_CLIENTS + 1)
+            def client(c: int) -> None:
+                own = range(c * per_client, (c + 1) * per_client)
+                for j in own[:expired_each]:
+                    q, plan, k = reqs[j]
+                    futs[j] = svc.submit(q, plan=plan, k=k, deadline_s=-1.0)
+                ready.wait(SERVICE_WAIT_S)
+                for j in own[expired_each:]:
+                    q, plan, k = reqs[j]
+                    futs[j] = svc.submit(q, plan=plan, k=k)
 
-    def client(c: int) -> None:
-        own = range(c * per_client, (c + 1) * per_client)
-        for j in own[:expired_each]:
-            q, plan, k = reqs[j]
-            futs[j] = svc.submit(q, plan=plan, k=k, deadline_s=-1.0)
-        ready.wait(SERVICE_WAIT_S)
-        for j in own[expired_each:]:
-            q, plan, k = reqs[j]
-            futs[j] = svc.submit(q, plan=plan, k=k)
+            before = launch_counts()
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVICE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            ready.wait(SERVICE_WAIT_S)
+            svc.start()
+            for t in threads:
+                t.join(SERVICE_WAIT_S)
+            check(not any(t.is_alive() for t in threads),
+                  "[serve] a client hung")
+            got = {j: f.result(timeout=SERVICE_WAIT_S)
+                   for j, f in futs.items()}
+            wall = time.perf_counter() - t0
+            check(svc.shutdown(drain=True, timeout=SERVICE_WAIT_S),
+                  "[serve] the service did not shut down")
+        cc.mark("steady")
+        after = launch_counts()
+        check(all(after[k] == before[k] for k in after if k not in
+                  GATHER_KERNELS), "[serve] the service launched an "
+              "all-pairs or segment-sum kernel")
+        _add(launched["gist"],
+             {k: after[k] - before[k] for k in GATHER_KERNELS})
+        expired = [j for c in range(SERVICE_CLIENTS)
+                   for j in range(c * per_client,
+                                  c * per_client + expired_each)]
+        check(len(got) == SERVICE_REQUESTS
+              and len({r.rid for r in got.values()}) == SERVICE_REQUESTS
+              and svc.n_done == SERVICE_REQUESTS,
+              "[serve] the service did not answer every rid exactly once")
+        for j, r in got.items():
+            if j in expired:
+                check(r.status == "timeout"
+                      and (np.asarray(r.ids) == -1).all(),
+                      f"[serve] service request {j}: {r.status}, not a "
+                      f"timeout")
+            else:
+                want = cont[j]
+                check(r.status == "ok" and np.array_equal(r.ids, want.ids)
+                      and np.array_equal(r.dists, want.dists),
+                      f"[serve] service request {j} != the continuous "
+                      f"engine's")
+        g = svc.gauges()
+        ch = g["chunks"]
+        lines.append(
+            f"service (loop thread, {SERVICE_CLIENTS} client threads, "
+            f"{SERVICE_MAX_BATCH} lanes): {SERVICE_REQUESTS} requests in "
+            f"{wall:.3f}s, {SERVICE_REQUESTS - SERVICE_EXPIRED} ok == the "
+            f"continuous engine's bit for bit, {g['timeouts']} timeouts (all "
+            f"ids -1); latency ms p50 {g['p50_ms']:.1f}, p99 "
+            f"{g['p99_ms']:.1f}; {_chunk_split(ch)}")
 
-    before = launch_counts()
-    threads = [threading.Thread(target=client, args=(c,))
-               for c in range(SERVICE_CLIENTS)]
-    t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    ready.wait(SERVICE_WAIT_S)
-    svc.start()
-    for t in threads:
-        t.join(SERVICE_WAIT_S)
-    check(not any(t.is_alive() for t in threads), "[serve] a client hung")
-    got = {j: f.result(timeout=SERVICE_WAIT_S) for j, f in futs.items()}
-    wall = time.perf_counter() - t0
-    check(svc.shutdown(drain=True, timeout=SERVICE_WAIT_S),
-          "[serve] the service did not shut down")
-    after = launch_counts()
-    check(all(after[k] == before[k] for k in after if k not in
-              GATHER_KERNELS), "[serve] the service launched an all-pairs "
-          "or segment-sum kernel")
-    _add(launched["gist"], {k: after[k] - before[k] for k in GATHER_KERNELS})
-    expired = [j for c in range(SERVICE_CLIENTS)
-               for j in range(c * per_client, c * per_client + expired_each)]
-    check(len(got) == SERVICE_REQUESTS
-          and len({r.rid for r in got.values()}) == SERVICE_REQUESTS
-          and svc.n_done == SERVICE_REQUESTS,
-          "[serve] the service did not answer every rid exactly once")
-    for j, r in got.items():
-        if j in expired:
-            check(r.status == "timeout" and (np.asarray(r.ids) == -1).all(),
-                  f"[serve] service request {j}: {r.status}, not a timeout")
-        else:
-            want = cont[j]
-            check(r.status == "ok" and np.array_equal(r.ids, want.ids)
-                  and np.array_equal(r.dists, want.dists),
-                  f"[serve] service request {j} != the continuous engine's")
-    g = svc.gauges()
-    ch = g["chunks"]
-    lines.append(
-        f"service (thread driver, {SERVICE_CLIENTS} client threads, "
-        f"{SERVICE_MAX_BATCH} lanes): {SERVICE_REQUESTS} requests in "
-        f"{wall:.3f}s, {SERVICE_REQUESTS - SERVICE_EXPIRED} ok == the "
-        f"continuous engine's bit for bit, {g['timeouts']} timeouts (all ids "
-        f"-1); latency ms p50 {g['p50_ms']:.1f}, p99 {g['p99_ms']:.1f}; "
-        f"{_chunk_split(ch)}")
+        # int8: continuous == grouped (the serving-side exact re-rank)
+        qreqs = _serve_requests(plans, SERVE_INT8_REQUESTS, SERVE_PLANS[:2],
+                                "gist_int8")
+        qeng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
+                            step_iters=SERVE_STEP_ITERS)
+        cc.mark("serve_steady")
+        (qcont, wall), made = counted(_drain, qeng, qreqs)
+        cc.mark("steady")
+        _add(launched["gist_int8"], made)
+        lines.append(_serve_line("int8 continuous", qeng, wall, len(qreqs)))
+        qgeng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
+                             scheduler="grouped")
+        (qgrp, wall), made = counted(_drain, qgeng, qreqs)
+        _add(launched["gist_int8"], made)
+        _same_responses(qcont, qgrp, "continuous vs grouped (int8)")
+        lines.append(_serve_line("int8 grouped", qgeng, wall, len(qreqs)))
 
-    # int8: continuous == grouped (the serving-side exact re-rank)
-    qreqs = _serve_requests(plans, SERVE_INT8_REQUESTS, SERVE_PLANS[:2],
-                            "gist_int8")
-    qeng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
-                        step_iters=SERVE_STEP_ITERS)
-    (qcont, wall), made = counted(_drain, qeng, qreqs)
-    _add(launched["gist_int8"], made)
-    lines.append(_serve_line("int8 continuous", qeng, wall, len(qreqs)))
-    qgeng = SearchEngine(db=db, max_batch=SERVE_MAX_BATCH,
-                         scheduler="grouped")
-    (qgrp, wall), made = counted(_drain, qgeng, qreqs)
-    _add(launched["gist_int8"], made)
-    _same_responses(qcont, qgrp, "continuous vs grouped (int8)")
-    lines.append(_serve_line("int8 grouped", qgeng, wall, len(qreqs)))
-
+    grouped_programs = cc.count("program") - made_before[0]
+    grouped_misses = db.programs.stats.misses - made_before[1]
+    cycles = locks.cycles()
+    check(cc.count("program", "serve_steady") == 0,
+          f"[serve] the stepping traffic made program entries: {cc.kinds}")
+    check(grouped_programs == grouped_misses,
+          f"[serve] {grouped_programs} program events against "
+          f"{grouped_misses} cache misses in the grouped drains")
+    check(g_don.windows > 0 and not g_don.violations,
+          f"[serve] in-flight guard: {g_don.report()}")
+    check(not cycles, f"[serve] lock-order cycles: {locks.report()}")
     f32, int8 = launched["gist"], launched["gist_int8"]
     check(f32["gather_distance_batch"] > 0
           and f32["quantized_gather_distance_batch"] == 0
@@ -2149,6 +2220,14 @@ def phase_serve(db, plans: dict) -> dict:
           f"{int8}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; phase "
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    print(f"[guards] [serve] (all five runs under the in-flight guard, the "
+          f"QPS above with it on): in-flight windows {g_don.windows}, "
+          f"violations {len(g_don.violations)}; program entries: "
+          f"{cc.count('program', 'serve_steady')} in the stepping traffic "
+          f"(both continuous drains and the service; 0 by construction, "
+          f"that path holds no program cache), {grouped_programs} "
+          f"in the grouped drains (== their {grouped_misses} cache misses);"
+          f" the service's locks: {locks.report()}", flush=True)
     return launched
 
 
@@ -2185,7 +2264,8 @@ def _recall(res_ids: np.ndarray, true_ids: np.ndarray) -> float:
     return hits / max(denom, 1)
 
 
-def phase_shard(X: np.ndarray, Q: np.ndarray, smi: str) -> dict:
+def phase_shard(X: np.ndarray, Q: np.ndarray,
+                smi: str) -> tuple[dict, tuple]:
     """The sharded path on one card: a ShardedNavix of SHARD_COUNT shards,
     every grid cell ``cuda:0``, over X (the first SHARD_ROWS rows); its
     one-shot search per lane, shared, under a quorum and on a data = 2
@@ -2193,7 +2273,8 @@ def phase_shard(X: np.ndarray, Q: np.ndarray, smi: str) -> dict:
     answer; ``NavixDB.execute`` with ``alive``; the continuous scheduler
     against the one-shot search of each request's group; a live service
     whose last shard goes stale mid-drain. Returns the launches of the
-    path's calls (the oracles' are not counted)."""
+    path's calls (the oracles' are not counted) and what ``[ckpt]`` needs:
+    the index, the lanes' masks and their per-lane pass."""
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     launched, lines = {}, []
@@ -2354,30 +2435,32 @@ def phase_shard(X: np.ndarray, Q: np.ndarray, smi: str) -> dict:
                  + f"; each rid == the one-shot search of its group "
                  f"({2 * len(SHARD_SELECTIONS)} groups) bit for bit")
 
-    # 8. a live service whose last shard's heartbeats stop mid-drain
-    clk = _Clock()
-    hb = HeartbeatMonitor(SHARD_COUNT, stale_after=1.0, clock=clk)
-    svc = db.serve(index="shards", k_cap=K, efs_cap=EFS,
-                   max_batch=SHARD_SERVICE_LANES,
-                   step_iters=SERVE_STEP_ITERS, heartbeats=hb,
-                   queue_size=2 * SHARD_SERVICE_REQUESTS)
-    futs = [svc.submit(q, plan=plan, k=k)
-            for q, plan, k in reqs[:SHARD_SERVICE_REQUESTS]]
-    before = launch_counts()
-    t0 = time.perf_counter()
-    svc.start()
-    deadline = time.perf_counter() + SERVICE_WAIT_S
-    while (sum(f.done() for f in futs) < SHARD_SERVICE_LANES // 2
-           and time.perf_counter() < deadline):
-        time.sleep(0.005)
-    n_before = sum(f.done() for f in futs)
-    hb.suppress(SHARD_COUNT - 1)
-    clk.t = 10.0                        # the last shard's beat is now stale
-    hb.beat_all()
-    got = [f.result(timeout=SERVICE_WAIT_S) for f in futs]
-    wall = time.perf_counter() - t0
-    check(svc.shutdown(drain=True, timeout=SERVICE_WAIT_S),
-          "[shard] the service did not shut down")
+    # 8. a live service whose last shard's heartbeats stop mid-drain,
+    # built and run under the lock-order monitor
+    with instrument_locks() as locks:
+        clk = _Clock()
+        hb = HeartbeatMonitor(SHARD_COUNT, stale_after=1.0, clock=clk)
+        svc = db.serve(index="shards", k_cap=K, efs_cap=EFS,
+                       max_batch=SHARD_SERVICE_LANES,
+                       step_iters=SERVE_STEP_ITERS, heartbeats=hb,
+                       queue_size=2 * SHARD_SERVICE_REQUESTS)
+        futs = [svc.submit(q, plan=plan, k=k)
+                for q, plan, k in reqs[:SHARD_SERVICE_REQUESTS]]
+        before = launch_counts()
+        t0 = time.perf_counter()
+        svc.start()
+        deadline = time.perf_counter() + SERVICE_WAIT_S
+        while (sum(f.done() for f in futs) < SHARD_SERVICE_LANES // 2
+               and time.perf_counter() < deadline):
+            time.sleep(0.005)
+        n_before = sum(f.done() for f in futs)
+        hb.suppress(SHARD_COUNT - 1)
+        clk.t = 10.0                    # the last shard's beat is now stale
+        hb.beat_all()
+        got = [f.result(timeout=SERVICE_WAIT_S) for f in futs]
+        wall = time.perf_counter() - t0
+        check(svc.shutdown(drain=True, timeout=SERVICE_WAIT_S),
+              "[shard] the service did not shut down")
     after = launch_counts()
     check(all(after[k] == before[k] for k in after
               if k not in GATHER_KERNELS),
@@ -2412,6 +2495,8 @@ def phase_shard(X: np.ndarray, Q: np.ndarray, smi: str) -> dict:
                  f"continuous engine's bit for bit; latency ms p50 "
                  f"{g['p50_ms']:.1f}, p99 {g['p99_ms']:.1f}")
 
+    check(not locks.cycles(),
+          f"[shard] lock-order cycles: {locks.report()}")
     check(launched["gather_distance_batch"] > 0
           and all(launched[k] == 0 for k in
                   ("quantized_gather_distance_batch", "gather_distance",
@@ -2423,7 +2508,71 @@ def phase_shard(X: np.ndarray, Q: np.ndarray, smi: str) -> dict:
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
           f" GiB; {smi}; phase {time.perf_counter() - t_phase:.1f}s",
           flush=True)
-    return launched
+    print(f"[guards] [shard] the stale-heartbeat service's locks: "
+          f"{locks.report()}", flush=True)
+    return launched, (sn, lanes, res)
+
+
+def phase_ckpt(sn: ShardedNavix, lanes: np.ndarray, before,
+               Q: np.ndarray) -> None:
+    """[shard]'s ShardedNavix through the checkpoint store: its shard
+    graphs saved as a list (the grid, ``n_local``, ``n_total`` and the
+    config in ``extra``) to a temporary directory in this checkout, found
+    again with ``latest_complete``, loaded onto the card with its
+    checksums verified, and rebuilt; one per-lane pass over the phase's
+    lanes then equals ``before``, the pass before the save, bit for bit
+    (ids, dists, every stat). The directory is removed."""
+    t_phase = time.perf_counter()
+    extra = {"grid": [sn.lane_shards, sn.n_shards], "n_local": sn.n_local,
+             "n_total": sn.n_total, "config": sn.config._asdict()}
+    with tempfile.TemporaryDirectory(prefix="ckpt_", dir=ROOT) as tmp:
+        sync()
+        t0 = time.perf_counter()
+        saved = store.save(tmp, 0, sn.graphs, extra=extra)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(p.stat().st_size for p in saved.glob("*.npy"))
+        found = store.latest_complete(tmp)
+        check(found == saved, f"[ckpt] latest_complete found {found}")
+        t0 = time.perf_counter()
+        graphs = store.load(found, [g.to("meta") for g in sn.graphs],
+                            device=sn.device, verify=True)
+        sync()
+        load_s = time.perf_counter() - t0
+        meta = store.load_manifest(found)
+    ex = meta["extra"]
+    back = ShardedNavix(mesh=make_mesh(tuple(ex["grid"]), device=sn.device),
+                        graphs=graphs, n_local=ex["n_local"],
+                        n_total=ex["n_total"],
+                        config=NavixConfig(**ex["config"]))
+    check(back.n_shards == sn.n_shards and back.config == sn.config
+          and all(torch.equal(a, b) for ga, gb in zip(graphs, sn.graphs)
+                  for a, b in zip(ga, gb))
+          and all(g.device == sn.device for g in graphs),
+          "[ckpt] the loaded graphs differ from the saved ones")
+    sync()
+    t0 = time.perf_counter()
+    res, launched = counted(back.search_many, Q, semimask=lanes, k=K,
+                            efs=EFS)
+    sync()
+    pass_s = time.perf_counter() - t0
+    _same_rs(res, before, "[ckpt] the reloaded index's per-lane pass vs "
+             "the pass before the save")
+    check(launched["gather_distance_batch"] > 0
+          and all(launched[k] == 0 for k in
+                  ("quantized_gather_distance_batch", "gather_distance",
+                   "quantized_gather_distance")),
+          f"[ckpt] the reloaded pass's launches: {launched}")
+    print(f"[ckpt] {sn.n_shards} shard graphs ({len(meta['leaves'])} leaves,"
+          f" {nbytes:,} B of .npy): save {save_s:.3f}s "
+          f"({nbytes / save_s / 1e6:.1f} MB/s), latest_complete == the saved"
+          f" step, load onto {sn.device} with checksums {load_s:.3f}s "
+          f"({nbytes / load_s / 1e6:.1f} MB/s); the rebuilt ShardedNavix's "
+          f"per-lane pass (B={len(Q)}, k={K}, efs={EFS}, {pass_s:.3f}s) == "
+          f"the pass before the save bit for bit (ids, dists, 5 stats), "
+          f"gather_distance_batch {launched['gather_distance_batch']} "
+          f"launches, the other three 0; directory removed; phase "
+          f"{time.perf_counter() - t_phase:.1f}s",
+          flush=True)
 
 
 def main() -> int:
@@ -2443,76 +2592,93 @@ def main() -> int:
         return out
 
     smi = phase_device()
-    timed("nvcc", phase_build_kernels)
-    timed("floor", phase_launch_floor)
-    kernels = timed("kernel", phase_kernel)
-    torch.cuda.empty_cache()
-    kernels += timed("kernel_int8", phase_kernel_int8)
-    torch.cuda.empty_cache()
-    kernels += timed("kernel_matrix", phase_kernel_matrix)
-    kernels += timed("kernel_quantized", phase_kernel_quantized)
-    kernels.append(timed("kernel_segment", phase_kernel_segment))
-    kernels = {k["name"]: k for k in kernels}
-    # the recsys retrieval path, its counts read just after its requests
-    kernels["distance_matrix"]["launches"] = timed("recsys", phase_recsys)
-    torch.cuda.empty_cache()
+    # one compile counter over the whole run: nvcc runs only in the
+    # builds; later phases mark their steady windows
+    with CompileCounter() as cc:
+        timed("nvcc", phase_build_kernels)
+        cc.mark("steady")
+        timed("floor", phase_launch_floor)
+        kernels = timed("kernel", phase_kernel)
+        torch.cuda.empty_cache()
+        kernels += timed("kernel_int8", phase_kernel_int8)
+        torch.cuda.empty_cache()
+        kernels += timed("kernel_matrix", phase_kernel_matrix)
+        kernels += timed("kernel_quantized", phase_kernel_quantized)
+        kernels.append(timed("kernel_segment", phase_kernel_segment))
+        kernels = {k["name"]: k for k in kernels}
+        # the recsys retrieval path, its counts read just after its requests
+        kernels["distance_matrix"]["launches"] = timed("recsys", phase_recsys)
+        torch.cuda.empty_cache()
 
-    X, labels, centers, Q = timed("data", make_data, N)
-    print(f"[data] gaussian_mixture({N:,}, {DIM}, {N_CLUSTERS}, seed=0) and "
-          f"{N_QUERIES} queries on the host: {seconds['data']:.1f}s",
-          flush=True)
-    masks = make_masks(len(X), SELECTIVITIES)
-    masks[1.0] = None
-    sweep = {s: masks[s] for s in SELECTIVITIES}
-    X_shard = X[:SHARD_ROWS].copy()                    # [shard]'s rows
+        X, labels, centers, Q = timed("data", make_data, N)
+        print(f"[data] gaussian_mixture({N:,}, {DIM}, {N_CLUSTERS}, seed=0) "
+              f"and {N_QUERIES} queries on the host: {seconds['data']:.1f}s",
+              flush=True)
+        masks = make_masks(len(X), SELECTIVITIES)
+        masks[1.0] = None
+        sweep = {s: masks[s] for s in SELECTIVITIES}
+        X_shard = X[:SHARD_ROWS].copy()                # [shard]'s rows
 
-    reset_counts()                                     # f32 path: build
-    idx = timed("build", phase_build, X)               # + search
-    del X
-    build_launches = gather_distance.LAUNCHES
-    build_spread = gather_distance.PATH_LAUNCHES["spread"]
-    f32 = timed("search", phase_search, idx, Q, sweep)
-    counts = launch_counts()
-    check(counts["gather_distance_batch"] > build_launches,
-          "the search phase launched no gather_distance kernel")
-    check(gather_distance.PATH_LAUNCHES["spread"] == build_spread,
-          "the f32 sweep launched the spread schedule")
-    check(counts["quantized_gather_distance_batch"] == 0,
-          "the f32 path launched the int8 kernel")
-    kernels["gather_distance_batch"]["launches"] = \
-        counts["gather_distance_batch"]
-    timed("profile", phase_profile, idx, Q, masks[0.1])
+        reset_counts()                                 # f32 path: build
+        idx = timed("build", phase_build, X)           # + search
+        del X
+        build_launches = gather_distance.LAUNCHES
+        build_spread = gather_distance.PATH_LAUNCHES["spread"]
+        f32 = timed("search", phase_search, idx, Q, sweep)
+        counts = launch_counts()
+        check(counts["gather_distance_batch"] > build_launches,
+              "the search phase launched no gather_distance kernel")
+        check(gather_distance.PATH_LAUNCHES["spread"] == build_spread,
+              "the f32 sweep launched the spread schedule")
+        check(counts["quantized_gather_distance_batch"] == 0,
+              "the f32 path launched the int8 kernel")
+        kernels["gather_distance_batch"]["launches"] = \
+            counts["gather_distance_batch"]
+        timed("profile", phase_profile, idx, Q, masks[0.1])
 
-    reset_counts()                                     # int8 path: quantize
-    qidx = timed("quantize", phase_quantize, idx)      # + int8 sweep
-    int8 = timed("search_int8", phase_search_int8, qidx, Q, sweep, f32)
-    counts = launch_counts()
-    check(counts["gather_distance_batch"] == counts["gather_distance"] == 0,
-          "the int8 path launched an f32 gather kernel")
-    int8_paths = dict(quantized_gather_distance.PATH_LAUNCHES)
-    check(int8_paths["spread"] == 0,
-          "the int8 sweep launched the spread schedule")
-    kernels["quantized_gather_distance_batch"]["launches"] = \
-        counts["quantized_gather_distance_batch"]
+        reset_counts()                                 # int8: quantize
+        qidx = timed("quantize", phase_quantize, idx)  # + int8 sweep
+        int8 = timed("search_int8", phase_search_int8, qidx, Q, sweep, f32)
+        counts = launch_counts()
+        check(counts["gather_distance_batch"] == 0
+              and counts["gather_distance"] == 0,
+              "the int8 path launched an f32 gather kernel")
+        int8_paths = dict(quantized_gather_distance.PATH_LAUNCHES)
+        check(int8_paths["spread"] == 0,
+              "the int8 sweep launched the spread schedule")
+        kernels["quantized_gather_distance_batch"]["launches"] = \
+            counts["quantized_gather_distance_batch"]
 
-    reset_counts()                                     # single-query oracle
-    cpu_idx = timed("parity", phase_parity, idx, qidx, Q, masks, f32, int8)
-    counts = launch_counts()
-    for name in ("gather_distance", "quantized_gather_distance"):
-        kernels[name]["launches"] = counts[name]
+        reset_counts()                                 # single-query oracle
+        cpu_idx = timed("parity", phase_parity, idx, qidx, Q, masks, f32,
+                        int8)
+        counts = launch_counts()
+        for name in ("gather_distance", "quantized_gather_distance"):
+            kernels[name]["launches"] = counts[name]
 
-    reset_counts()                                     # the database path
-    db = timed("db", phase_db, idx, qidx, labels, centers, Q)
-    db_read = launch_counts()
-    reset_counts()                                     # the postfilter path
-    pf = timed("postfilter", phase_postfilter, idx, cpu_idx, Q, db["plans"])
-    pf_read = launch_counts()
-    reset_counts()                                     # the serving path
-    serve = timed("serve", phase_serve, db["db"], db["plans"])
-    serve_read = launch_counts()
-    reset_counts()                                     # the sharded path
-    shard = timed("shard", phase_shard, X_shard, Q, smi)
-    shard_read = launch_counts()
+        reset_counts()                                 # the database path
+        db = timed("db", phase_db, idx, qidx, labels, centers, Q, cc)
+        db_read = launch_counts()
+        reset_counts()                                 # the postfilter path
+        pf = timed("postfilter", phase_postfilter, idx, cpu_idx, Q,
+                   db["plans"])
+        pf_read = launch_counts()
+        reset_counts()                                 # the serving path
+        serve = timed("serve", phase_serve, db["db"], db["plans"], cc)
+        serve_read = launch_counts()
+        reset_counts()                                 # the sharded path
+        shard, ckpt_state = timed("shard", phase_shard, X_shard, Q, smi)
+        shard_read = launch_counts()
+        timed("ckpt", phase_ckpt, *ckpt_state, Q)
+        del ckpt_state
+    late_nvcc = {p: k["nvcc"] for p, k in cc.kinds.items()
+                 if p != "warmup" and k.get("nvcc")}
+    check(not late_nvcc, f"nvcc ran after the kernel builds: {late_nvcc}")
+    print(f"[guards] compile events by phase: {cc.kinds}; nvcc "
+          f"{cc.count('nvcc', 'warmup')} in the builds and 0 after; program "
+          f"entries {cc.count('program', 'db_steady')} in [db]'s and "
+          f"{cc.count('program', 'serve_steady')} in [serve]'s steady "
+          f"traffic", flush=True)
     # the executes' launches (the phase also launched to compare)
     db_path = {n: db["gist"][n] + db["gist_int8"][n] for n in GATHER_KERNELS}
     serve_path = {n: serve["gist"][n] + serve["gist_int8"][n]

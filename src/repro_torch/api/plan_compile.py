@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.analysis.runtime import PROGRAM, record_compile
 from repro_torch.core.graph import HnswGraph
 from repro_torch.core.quantize import QuantizedStore
 from repro_torch.core.search import SearchParams, SearchResult
@@ -139,6 +140,15 @@ class ProgramCache:
             self.stats.hits += 1
         return prog
 
+    def _store(self, key: ProgramKey, prog):
+        """Store the entry made after a miss under ``key``; each is one
+        ``"program"`` event for ``repro_torch.analysis.runtime``'s compile
+        counters, counted here where it is made (the reference counts the
+        compile, not the cache's stats)."""
+        self._programs[key] = prog
+        record_compile(PROGRAM)
+        return prog
+
     # -- execution ----------------------------------------------------------
     def search(self, graph: HnswGraph, q: torch.Tensor,
                sel_bits: torch.Tensor, params: SearchParams,
@@ -148,8 +158,8 @@ class ProgramCache:
         key = self._key(graph, params, None)
         prog = self._lookup(key)
         if prog is None:
-            prog = self._programs[key] = functools.partial(_search,
-                                                           params=params)
+            prog = self._store(key, functools.partial(_search,
+                                                      params=params))
         return prog(graph, q, sel_bits, sigma_g=sigma_g)
 
     def search_batch(self, graph: HnswGraph, Q: torch.Tensor,
@@ -198,7 +208,7 @@ class ProgramCache:
                         per_lane_sel=per_lane)
         prog = self._lookup(key)
         if prog is None:
-            prog = self._programs[key] = functools.partial(fn, params=params)
+            prog = self._store(key, functools.partial(fn, params=params))
         res = prog(graph, Q, sel_bits, sigma_g=sigma_g)
         if bb != b:
             res = SearchResult(dists=res.dists[:b], ids=res.ids[:b],
@@ -245,7 +255,7 @@ class ProgramCache:
             lane_shards=ls)
         prog = self._lookup(key)
         if prog is None:
-            prog = self._programs[key] = sn._program("search", params)
+            prog = self._store(key, sn._program("search", params))
         res = prog(sn.graphs, Q, sel_bits, alive)
         if bb != b:
             res = SearchResult(dists=res.dists[:b], ids=res.ids[:b],

@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 (no PyTorch headers, so a build takes seconds). Libraries go to
 ``kernels/_build_out/`` beside the sources (ignored by git), named by a
 hash of the source, the headers in ``csrc/`` and the flags, so an edited
-source or header builds anew and an unchanged one is reused.
+source or header builds anew and an unchanged one is reused. Each run of
+``nvcc`` is reported to ``repro_torch.analysis.runtime``'s compile
+counters as one ``"nvcc"`` event; a reused library is none.
 
 Every kernel's wrapper binds its entry with :func:`bind`, checks its
 tensors with :func:`check_cuda_inputs` and launches through
@@ -25,6 +27,8 @@ import subprocess
 import time
 
 import torch
+
+from repro_torch.analysis.runtime import NVCC, record_compile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build_out"
@@ -83,6 +87,7 @@ def load(name: str) -> ctypes.CDLL:
         os.replace(tmp, so)    # atomic: a concurrent loader sees all or none
         build_info[name] = {"seconds": time.perf_counter() - t0,
                             "log": (proc.stdout + proc.stderr).strip()}
+        record_compile(NVCC)
     lib = ctypes.CDLL(str(so))
     _loaded[name] = lib
     return lib

@@ -626,3 +626,37 @@ def test_sharded_search_on_one_card_equals_its_cpu_copy(cuda):
                                        for s in range(4)]
     assert all(rep[0] is sn.graphs[s] and rep[1].device.type == "cpu"
                for (s, _), rep in mixed._replicas.items())
+
+
+_COUNT_NVCC = """\
+import json, pathlib, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.analysis.runtime import CompileCounter
+from repro_torch.kernels import _build
+_build.BUILD_DIR = pathlib.Path(sys.argv[2])    # nothing built there yet
+with CompileCounter() as cc:
+    _build.load("cuda_error")
+    cc.mark("again")
+    _build.load("cuda_error")                   # loaded in this process
+    _build._loaded.clear()
+    _build.load("cuda_error")                   # reused from the build dir
+print(json.dumps(cc.kinds))
+"""
+
+
+def test_compile_counter_counts_one_nvcc_run_then_none(cuda, tmp_path):
+    """In a fresh process under ``CompileCounter``, building a CUDA source
+    with nvcc is one ``"nvcc"`` event; using it again, loaded or from
+    the build directory, is none."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    src = pathlib.Path(__file__).resolve().parent.parent / "src"
+    proc = subprocess.run(
+        [sys.executable, "-c", _COUNT_NVCC, str(src), str(tmp_path / "out")],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    kinds = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert kinds == {"warmup": {"nvcc": 1}, "again": {}}
