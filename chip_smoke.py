@@ -13,7 +13,8 @@ and on the tensor cores above, at a 1M-candidate retrieval, b = 16, a
 serve batch and GIST width; the int8 all-pairs distance on both its paths,
 streaming at a 1M-row scan and on the tensor cores at GIST width, also
 against float64, with a sweep of batch sizes across both paths; the CSR
-segment sum on the ogb_products graph),
+segment sum on the ogb_products graph and on a power-law graph of its
+size, hub rows against float64),
 answers 8 recsys retrieval requests of BST at full width (1M candidates
 out of a 5M-item table, through the all-pairs kernel, each answer held
 against the plain path, one of them profiled), builds a GIST1M-shaped index
@@ -156,9 +157,18 @@ F64_ERR_RATIO = 4.0
 # kernel 7: meshgraphnet's ogb_products graph (configs/meshgraphnet.py) at its
 # d_hidden, edges padded to a multiple of 512
 OGB_NODES, OGB_EDGES, OGB_D = 2_449_029, 61_859_140, 128
+# ... and on ogb_products_powerlaw, the same sizes with destinations drawn by
+# random_power_law_graph's law (data/graph_sampler.py, alpha 1.5)
+OGB_POWERLAW_ALPHA = 1.5
 # kernel 7 and torch.segment_reduce timed in turns: rounds, calls a round
+# (3 rounds of 1 call where one segment_reduce call takes over SEGMENT_SLOW_MS)
 SEGMENT_ROUNDS = 7
 SEGMENT_REPS = 3
+SEGMENT_SLOW_MS = 100.0
+# on the skewed graph, nodes of more edges than this (the hub rows) are held
+# against float64: two f32 orders of their long sums differ beyond
+# SEGMENT_TOL
+SEGMENT_HUB_DEGREE = 64
 RETRIEVAL_ARCH = "bst"
 RETRIEVAL_REQUESTS = 8
 RETRIEVAL_K = 100
@@ -1107,26 +1117,121 @@ def phase_kernel_quantized() -> list[dict]:
     return entries
 
 
-def phase_kernel_segment() -> dict:
-    """Kernel 7 on the ogb_products graph at d = 128: messages made on the
-    card, destinations uniform and sorted, padding at the end. The kernel
-    against its plain version (``index_add_``), timed beside
-    ``torch.segment_reduce``, and driven once through its ops entry (its
-    whole path) with -1 padding."""
-    n, e, d = OGB_NODES, OGB_EDGES, OGB_D
+def _segment_inputs(gen: torch.Generator, dst: torch.Tensor, d: int):
+    """(messages, dst with sentinel padding, dst with -1 padding) for sorted
+    destinations ``dst``: E padded to a multiple of 512, messages made on
+    the card."""
+    e = dst.numel()
     e_pad = -(-e // 512) * 512
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    dst = torch.sort(torch.randint(0, n, (e,), generator=gen, device="cuda",
-                                   dtype=torch.int32)).values
     pad = torch.full((e_pad - e,), segment_sum.PAD_SENTINEL,
                      dtype=torch.int32, device="cuda")
     dst_sent = torch.cat([dst, pad])
     dst_minus = torch.cat([dst, torch.full_like(pad, -1)])
-    del dst, pad
     msgs = torch.randn((e_pad, d), generator=gen, device="cuda")
+    return msgs, dst_sent, dst_minus
+
+
+def _powerlaw_dst(gen: torch.Generator, n: int, e: int) -> torch.Tensor:
+    """int32[e] sorted destinations drawn on the card by the law of
+    ``random_power_law_graph``: node r (its rank - 1, so the hub is node 0)
+    with weight (r + 1)^-(OGB_POWERLAW_ALPHA / 2), by inverse CDF."""
+    w = torch.arange(1, n + 1, dtype=torch.float64, device="cuda")
+    cdf = torch.cumsum(w.pow_(-OGB_POWERLAW_ALPHA / 2), 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand((e,), generator=gen, dtype=torch.float64, device="cuda")
+    ids = torch.searchsorted(cdf, u).clamp_(max=n - 1).to(torch.int32)
+    del w, cdf, u
+    return torch.sort(ids).values
+
+
+def _library_lengths(dst_sent: torch.Tensor, n: int) -> torch.Tensor:
+    """int64[n + 1]: ``torch.segment_reduce``'s lengths of the n nodes and
+    the padding, from the sorted destinations."""
+    row_ptr = torch.searchsorted(
+        dst_sent, torch.arange(n + 1, dtype=torch.int32, device="cuda"))
+    return torch.cat([row_ptr.diff(), dst_sent.numel() - row_ptr[-1:]])
+
+
+def _in_turns_rounds(calls: dict, rounds: int, reps: int) -> dict:
+    """Per call name the list of ``rounds`` times (ms, the mean of ``reps``
+    calls each), the calls timed in turns (a, b, c, c, b, a, ...), so a
+    drift of the card's clock hits all alike."""
+    out = {name: [] for name in calls}
+    for r in range(rounds):
+        for name in (calls if r % 2 == 0 else reversed(calls)):
+            out[name].append(cuda_ms(calls[name], reps=reps))
+    return out
+
+
+def _rounds_line(what: str, rounds: dict, labels: dict) -> str:
+    med = {k: float(np.median(v)) for k, v in rounds.items()}
+    parts = [f"{labels[k]} median {med[k]:.4f} ms (range {min(v):.4f}-"
+             f"{max(v):.4f}; per round {[round(x, 4) for x in v]})"
+             for k, v in rounds.items()]
+    first = next(iter(rounds))
+    ratios = ", ".join(f"{first} / {k} {med[first] / med[k]:.4f}"
+                       for k in list(rounds)[1:])
+    return f"[kernel] csr_segment_sum {what}: " + "; ".join(parts) + \
+        f"; {ratios}"
+
+
+def _segment_check_powerlaw(msgs, dst_sent, got, n: int, deg: torch.Tensor,
+                            where: str) -> float:
+    """The kernel on a skewed graph: nodes of at most SEGMENT_HUB_DEGREE
+    edges against the plain version at SEGMENT_TOL; the hub rows above it,
+    whose f32 sums differ in order over up to ~400k adds, against a float64
+    sum, at most F64_ERR_RATIO times the plain version's error there.
+    Returns the max abs error against the plain version on the checked
+    nodes."""
+    plain = ref.csr_segment_sum(msgs, dst_sent, n)
+    low = deg <= SEGMENT_HUB_DEGREE
+    max_abs = _check_close(got[low], plain[low], SEGMENT_TOL,
+                           f"{where}, nodes of <= {SEGMENT_HUB_DEGREE} edges")
+    hub = torch.nonzero(~low).squeeze(1)
+    exact = torch.zeros((n + 1, msgs.shape[1]), dtype=torch.float64,
+                        device="cuda")
+    safe = torch.where(dst_sent < n, dst_sent, n).long()
+    step = 1 << 22
+    for r in range(0, msgs.shape[0], step):
+        exact.index_add_(0, safe[r:r + step], msgs[r:r + step].double())
+    exact = exact[hub]
+    err_k = float((got[hub].double() - exact).abs().max())
+    err_p = float((plain[hub].double() - exact).abs().max())
+    check(bool(torch.isfinite(got).all()) and err_k <= F64_ERR_RATIO * err_p,
+          f"csr_segment_sum ({where}): hub rows' max abs error against "
+          f"float64 {err_k} > {F64_ERR_RATIO} x the plain version's {err_p}")
+    print(f"[kernel] csr_segment_sum == plain version on {where}: max abs "
+          f"err {max_abs:.3e} on the {int(low.sum()):,} nodes of <= "
+          f"{SEGMENT_HUB_DEGREE} edges (rtol = atol = {SEGMENT_TOL}); on the "
+          f"{hub.numel():,} hub nodes against float64: kernel {err_k:.3e}, "
+          f"plain version {err_p:.3e} (at most {F64_ERR_RATIO}x it)",
+          flush=True)
+    return max_abs
+
+
+def phase_kernel_segment() -> dict:
+    """Kernel 7 at meshgraphnet's ogb_products size (n, E, d = 128) on two
+    graphs, messages made on the card, destinations sorted, padding at the
+    end. Uniform destinations: the kernel against its plain version
+    (``index_add_``), two calls bit for bit, driven once through its ops
+    entry (its whole path) with -1 padding, then timed in turns beside
+    ``torch.segment_reduce`` given its lengths and making them from the
+    destinations. ``ogb_products_powerlaw`` (destinations by
+    ``random_power_law_graph``'s law, a hub of ~400k edges): against the
+    plain version and, on the hub rows, float64, then timed in turns beside
+    ``torch.segment_reduce``."""
+    n, e, d = OGB_NODES, OGB_EDGES, OGB_D
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dst = torch.sort(torch.randint(0, n, (e,), generator=gen, device="cuda",
+                                   dtype=torch.int32)).values
+    msgs, dst_sent, dst_minus = _segment_inputs(gen, dst, d)
+    e_pad = msgs.shape[0]
+    del dst
     got = segment_sum.csr_segment_sum(msgs, dst_sent, n)
     max_abs = _check_close(got, ref.csr_segment_sum(msgs, dst_sent, n),
                            SEGMENT_TOL, f"csr_segment_sum n={n} E={e} d={d}")
+    check(torch.equal(segment_sum.csr_segment_sum(msgs, dst_sent, n), got),
+          "csr_segment_sum: two calls differ (ogb_products)")
     reset_counts()                                   # its path: the ops entry
     via_ops = ops.csr_segment_sum(msgs, dst_minus, n)
     sync()
@@ -1134,45 +1239,78 @@ def phase_kernel_segment() -> dict:
     check(torch.equal(via_ops, got),
           "the ops entry on -1 padding != the kernel on sentinel padding")
     del got, via_ops, dst_minus
-    row_ptr = segment_sum.row_pointers(dst_sent, n)
-    lengths = torch.cat([row_ptr.diff(), e_pad - row_ptr[-1:]])
+    lengths = _library_lengths(dst_sent, n)
     b_s, by = bound_s(4 * e * d + 4 * e_pad + 4 * n * d, e * d)
     b_ms = b_s * 1e3
-    # the kernel and the library call in alternation (a, b, b, a, ...), so
-    # a drift of the card's clock hits both alike; each round's time is
-    # the mean of SEGMENT_REPS calls
+    # (a) the wrapper's whole call from dst_sorted; (b) the library call
+    # given its lengths; (c) the library call making them from dst_sorted
     calls = {"kernel": lambda: segment_sum.csr_segment_sum(msgs, dst_sent, n),
              "library": lambda: torch.segment_reduce(
-                 msgs, "sum", lengths=lengths, axis=0, unsafe=True)}
-    rounds = {name: [] for name in calls}
-    for r in range(SEGMENT_ROUNDS):
-        for name in (calls if r % 2 == 0 else reversed(calls)):
-            rounds[name].append(cuda_ms(calls[name], reps=SEGMENT_REPS))
+                 msgs, "sum", lengths=lengths, axis=0, unsafe=True),
+             "library_from_dst": lambda: torch.segment_reduce(
+                 msgs, "sum", lengths=_library_lengths(dst_sent, n), axis=0,
+                 unsafe=True)}
+    rounds = _in_turns_rounds(calls, SEGMENT_ROUNDS, SEGMENT_REPS)
     med = {name: float(np.median(v)) for name, v in rounds.items()}
     t = (med["kernel"],
          cuda_ms(lambda: ref.csr_segment_sum(msgs, dst_sent, n), reps=3),
          (b_ms, by), med["library"])
+    rows, spans = segment_sum.plan(e_pad, d)
     print(f"[kernel] csr_segment_sum == plain version (index_add_) on "
           f"ogb_products, n={n:,} E={e:,} (padded to {e_pad:,}) d={d}: max "
-          f"abs err {max_abs:.3e} (rtol = atol = {SEGMENT_TOL}); the ops "
-          "entry on -1 padding equals the kernel on sentinel padding",
-          flush=True)
+          f"abs err {max_abs:.3e} (rtol = atol = {SEGMENT_TOL}); two calls "
+          f"equal bit for bit; the ops entry on -1 padding equals the kernel "
+          f"on sentinel padding ({launches} launches: {spans:,} spans of "
+          f"{rows} rows, then the fix-up)", flush=True)
     print(_timing_line("csr_segment_sum", {(n, e, d): t},
                        "torch.segment_reduce(sum, lengths)", "(n, E, d)"),
           flush=True)
-    lo = {name: min(v) for name, v in rounds.items()}
-    hi = {name: max(v) for name, v in rounds.items()}
-    overlap = lo["kernel"] <= hi["library"] and lo["library"] <= hi["kernel"]
-    print(f"[kernel] csr_segment_sum in turns with torch.segment_reduce, "
-          f"{SEGMENT_ROUNDS} rounds of {SEGMENT_REPS} calls: kernel median "
-          f"{med['kernel']:.4f} ms (range {lo['kernel']:.4f}-"
-          f"{hi['kernel']:.4f}), segment_reduce median {med['library']:.4f} "
-          f"ms (range {lo['library']:.4f}-{hi['library']:.4f}); kernel / "
-          f"library {med['kernel'] / med['library']:.4f}; the ranges "
-          f"{'overlap' if overlap else 'do not overlap'}; per round (ms): "
-          f"kernel {[round(x, 4) for x in rounds['kernel']]}, library "
-          f"{[round(x, 4) for x in rounds['library']]}", flush=True)
-    del msgs, dst_sent, row_ptr, lengths
+    print(_rounds_line(
+        f"on ogb_products in turns, {SEGMENT_ROUNDS} rounds of "
+        f"{SEGMENT_REPS} calls", rounds,
+        {"kernel": "(a) kernel, the whole call from dst_sorted",
+         "library": "(b) torch.segment_reduce given lengths",
+         "library_from_dst": "(c) torch.segment_reduce with searchsorted + "
+                             "diff making its lengths from dst_sorted"}),
+          flush=True)
+    del msgs, dst_sent, lengths
+    torch.cuda.empty_cache()
+
+    # ogb_products_powerlaw: the same n, E and d, skewed destinations
+    dst = _powerlaw_dst(gen, n, e)
+    deg = torch.bincount(dst, minlength=n)
+    top = torch.topk(deg, 10).values
+    msgs, dst_sent, _ = _segment_inputs(gen, dst, d)
+    del dst
+    got = segment_sum.csr_segment_sum(msgs, dst_sent, n)
+    where = f"ogb_products_powerlaw (alpha {OGB_POWERLAW_ALPHA})"
+    pl_abs = _segment_check_powerlaw(msgs, dst_sent, got, n, deg, where)
+    check(torch.equal(segment_sum.csr_segment_sum(msgs, dst_sent, n), got),
+          f"csr_segment_sum: two calls differ ({where})")
+    del got
+    lengths = _library_lengths(dst_sent, n)
+    calls = {"kernel": lambda: segment_sum.csr_segment_sum(msgs, dst_sent, n),
+             "library": lambda: torch.segment_reduce(
+                 msgs, "sum", lengths=lengths, axis=0, unsafe=True)}
+    one = cuda_ms(calls["library"], reps=1)
+    pl_rounds, pl_reps = ((SEGMENT_ROUNDS, SEGMENT_REPS)
+                          if one <= SEGMENT_SLOW_MS else (3, 1))
+    rounds = _in_turns_rounds(calls, pl_rounds, pl_reps)
+    print(f"[kernel] {where}: n={n:,} E={e:,} d={d}, largest degree "
+          f"{int(top[0]):,}, {int(top.sum()):,} edges in the top 10 nodes, "
+          f"{int((deg > segment_sum.plan(e, d)[0]).sum()):,} nodes longer "
+          f"than a span; two calls equal bit for bit", flush=True)
+    print(_rounds_line(
+        f"on {where} in turns, {pl_rounds} rounds of {pl_reps} calls"
+        + ("" if pl_rounds == SEGMENT_ROUNDS else
+           f" (one segment_reduce call took {one:.1f} ms > "
+           f"{SEGMENT_SLOW_MS:.0f})"), rounds,
+        {"kernel": "kernel", "library": "torch.segment_reduce given lengths"}),
+          flush=True)
+    pl_med = float(np.median(rounds["kernel"]))
+    print(f"[kernel] csr_segment_sum ogb_products_powerlaw / ogb_products: "
+          f"{pl_med / t[0]:.4f} (max abs err {pl_abs:.3e} there)", flush=True)
+    del msgs, dst_sent, lengths, deg
     torch.cuda.empty_cache()
     entry = kernel_entry("csr_segment_sum", max_abs, (t[0], t[1], b_ms), by,
                          t[3])

@@ -377,9 +377,14 @@ def test_quantized_distance_kernel_on_unaligned_rows(cuda):
 
 
 # per-node degrees of about 1 to 20, as in the GNN graphs (ogb_products
-# averages 25); long segments are held by the next test
+# averages 25), at meshgraphnet's widths (Cora's 1433, Reddit's 602,
+# ogb_products' 100 and d_hidden 128) and the scalar path's odd ones; long
+# segments are held by the tests below
 @pytest.mark.parametrize("e,d,n", [(5000, 128, 300), (4096, 61, 2000),
-                                   (1, 4, 3), (20000, 256, 1000)])
+                                   (1, 4, 3), (20000, 256, 1000),
+                                   (3000, 1, 100), (3000, 3, 100),
+                                   (3000, 100, 300), (2000, 602, 100),
+                                   (1500, 1433, 100)])
 def test_segment_sum_kernel_matches_plain_version(cuda, e, d, n):
     gen = torch.Generator(device=cuda).manual_seed(e + d + n)
     dst = torch.sort(torch.randint(0, n, (e,), generator=gen, device=cuda,
@@ -388,7 +393,7 @@ def test_segment_sum_kernel_matches_plain_version(cuda, e, d, n):
     msgs = torch.randn((e, d), generator=gen, device=cuda)
     before = segment_sum.LAUNCHES
     got = ops.csr_segment_sum(msgs, dst, n)
-    assert segment_sum.LAUNCHES == before + 1
+    assert segment_sum.LAUNCHES == before + segment_sum.launches(e, d)
     torch.testing.assert_close(got, ref.csr_segment_sum(msgs, dst, n),
                                rtol=1e-5, atol=1e-5)
     # sentinel padding gives the same sums, bit for bit
@@ -396,8 +401,78 @@ def test_segment_sum_kernel_matches_plain_version(cuda, e, d, n):
     assert torch.equal(ops.csr_segment_sum(msgs, sent, n), got)
 
 
+def _power_law_dst(gen, n, e):
+    """Sorted destinations by ``random_power_law_graph``'s law (node r with
+    weight (r + 1)^-0.75: node 0 is the hub)."""
+    w = torch.arange(1, n + 1, dtype=torch.float64, device=gen.device)
+    cdf = torch.cumsum(w ** -0.75, 0)
+    u = torch.rand((e,), generator=gen, dtype=torch.float64,
+                   device=gen.device) * cdf[-1]
+    ids = torch.searchsorted(cdf, u).clamp_(max=n - 1).to(torch.int32)
+    return torch.sort(ids).values
+
+
+def _exact(msgs, dst, n):
+    out = torch.zeros((n + 1, msgs.shape[1]), dtype=torch.float64,
+                      device=msgs.device)
+    out.index_add_(0, torch.where((dst >= 0) & (dst < n), dst, n).long(),
+                   msgs.double())
+    return out[:n]
+
+
+@pytest.mark.parametrize("d", [128, 61])
+def test_segment_sum_kernel_on_a_power_law_graph(cuda, d):
+    """The law of ``random_power_law_graph`` at n = 20,000, E = 500,000 (a
+    hub of ~11,000 edges): nodes of at most 64 edges against the plain
+    version, the rest against float64 (at the long-segment test's atol)."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    n, e = 20_000, 500_000
+    dst = _power_law_dst(gen, n, e)
+    msgs = torch.randn((e, d), generator=gen, device=cuda)
+    got = ops.csr_segment_sum(msgs, dst, n)
+    deg = torch.bincount(dst, minlength=n)
+    short = deg <= 64
+    torch.testing.assert_close(got[short],
+                               ref.csr_segment_sum(msgs, dst, n)[short],
+                               rtol=1e-5, atol=1e-5)
+    assert deg.max() > 10_000
+    torch.testing.assert_close(got[~short].double(),
+                               _exact(msgs, dst, n)[~short], rtol=1e-5,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("d", [128, 100, 3])
+def test_segment_sum_two_calls_are_bitwise_equal(cuda, d):
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    dst = _power_law_dst(gen, 5000, 200_000)
+    msgs = torch.randn((200_000, d), generator=gen, device=cuda)
+    assert torch.equal(ops.csr_segment_sum(msgs, dst, 5000),
+                       ops.csr_segment_sum(msgs, dst, 5000))
+
+
+# (E, d, n, rows a span): short spans so that segments cross many of them
+@pytest.mark.parametrize("e,d,n,span_rows", [
+    (5000, 128, 300, 64), (4096, 61, 2000, 32), (3000, 1, 100, 7),
+    (3000, 100, 100, 40), (2000, 602, 100, 16), (1500, 1433, 100, 11),
+    (20000, 256, 1000, 50), (40, 8, 5, 8), (0, 8, 5, 8), (100, 8, 50, 512)])
+def test_segment_sum_kernel_equals_its_schedule_bit_for_bit(
+        cuda, e, d, n, span_rows):
+    """The kernel at a given span equals ``span_schedule`` (its order in
+    plain PyTorch on the CPU) bit for bit, power-law and uniform."""
+    gen = torch.Generator(device=cuda).manual_seed(e + d + span_rows)
+    for dst in (torch.sort(torch.randint(0, n, (e,), generator=gen,
+                                         device=cuda,
+                                         dtype=torch.int32)).values,
+                _power_law_dst(gen, n, e)):
+        dst[e - e // 10:] = segment_sum.PAD_SENTINEL
+        msgs = torch.randn((e, d), generator=gen, device=cuda)
+        got = segment_sum._launch(msgs, dst, n, span_rows)
+        want, _, _ = segment_sum.span_schedule(msgs, dst, n, span_rows)
+        assert torch.equal(got.cpu(), want)
+
+
 def test_segment_sum_kernel_on_long_segments(cuda):
-    """2000 edges a node: both f32 sums (the kernel's in edge order, the
+    """2000 edges a node: both f32 sums (the kernel's in span pieces, the
     plain version's by atomics) stray from the exact sum by about
     sqrt(2000) roundings of values near 45, so each is held against a
     float64 sum at atol 1e-3 rather than against the other at 1e-5."""
@@ -406,12 +481,30 @@ def test_segment_sum_kernel_on_long_segments(cuda):
     dst = torch.sort(torch.randint(0, n, (e,), generator=gen, device=cuda,
                                    dtype=torch.int32)).values
     msgs = torch.randn((e, d), generator=gen, device=cuda)
-    exact = torch.zeros((n, d), dtype=torch.float64, device=cuda)
-    exact.index_add_(0, dst.long(), msgs.double())
+    exact = _exact(msgs, dst, n)
     got = ops.csr_segment_sum(msgs, dst, n)
     torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(ref.csr_segment_sum(msgs, dst, n).double(),
                                exact, rtol=1e-5, atol=1e-3)
+
+
+def test_segment_sum_hub_of_many_spans_against_float64(cuda):
+    """One node of 40,000 edges across more than 10 spans of the wrapper's
+    plan (its pieces added in span order by the fix-up), beside short
+    ones."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    e, d, n = 60_000, 128, 1000
+    rows, spans = segment_sum.plan(e, d)
+    hub = torch.zeros(40_000, dtype=torch.int32, device=cuda) + 3
+    rest = torch.randint(4, n, (e - hub.numel(),), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    dst = torch.sort(torch.cat([hub, rest])).values
+    assert 40_000 > 10 * rows and spans > 10
+    msgs = torch.randn((e, d), generator=gen, device=cuda)
+    got = ops.csr_segment_sum(msgs, dst, n)
+    torch.testing.assert_close(got.double(), _exact(msgs, dst, n), rtol=1e-5,
+                               atol=1e-3)
+    assert not got[:3].any()
 
 
 def _to(tree, device):
