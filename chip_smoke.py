@@ -17,7 +17,13 @@ segment sum on the ogb_products graph and on a power-law graph of its
 size, hub rows against float64),
 answers 8 recsys retrieval requests of BST at full width (1M candidates
 out of a 5M-item table, through the all-pairs kernel, each answer held
-against the plain path, one of them profiled), builds a GIST1M-shaped index
+against the plain path, one of them profiled), trains MeshGraphNet's full
+config on Reddit-regime minibatch blocks sampled from a power-law graph
+through the port's checkpointed training loop, kernel 7 aggregating every
+block's messages (``[gnn]``: each kernel-7 call of a forward against its
+plain version, the segment sum's backward bit for bit, the f32 model on
+the card against its CPU copy, the reloaded checkpoint bit for bit, one
+step resumed and one profiled), builds a GIST1M-shaped index
 on the card (n = 1,000,000 x d = 960, l2, the paper's index settings),
 answers filtered batched queries at the paper's selectivities through
 ``NavixIndex.search_many``, makes the index int8-resident with
@@ -39,7 +45,7 @@ same database it serves requests of mixed plans and beam widths through the
 serving tier (``[serve]``): ``SearchEngine``'s continuous scheduler against
 its grouped one, bit for bit per request, and ``db.serve()``'s live service
 with client threads and expired deadlines, on the f32 and the int8 entry.
-Last, it shards the first 131,071 rows over a grid of 4 shards on the one
+Last, it shards the first 65,535 rows over a grid of 4 shards on the one
 card (``[shard]``): a ``ShardedNavix`` searched per lane, with a shared
 mask, under a quorum and on a data = 2 grid, each bit for bit against the
 on-card oracle ``per_shard_reference`` or the data = 1 answer, then through
@@ -53,7 +59,9 @@ runtime guards watch phases that already run (``[guards]``): one
 program entry in ``[db]``'s and ``[serve]``'s steady traffic),
 ``[serve]`` under the in-flight guard of ``LaneBatch``, and both live
 services under the lock-order monitor.
-Each phase prints one line or two; a failed
+The host's data (the 1M mixture, ``[gnn]``'s graph) is made on two
+worker threads while the kernels build and the kernel phases run. Each
+phase prints one line or two; a failed
 phase raises, so the script exits non-zero and prints no ``ok`` line. The
 last three lines are the card's name and power limit, a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": ...}``.
@@ -89,7 +97,9 @@ from repro_torch.analysis.runtime import (CompileCounter,  # noqa: E402
 from repro_torch.api import NavixDB  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.common.hardware import TARGET, bound_s  # noqa: E402
-from repro_torch.common.util import tree_bytes, tree_leaves  # noqa: E402
+from repro_torch.common.util import (tree_bytes,  # noqa: E402
+                                     tree_flatten_with_path, tree_leaves,
+                                     tree_unflatten)
 from repro_torch.configs.navix_paper import (PAPER_INDEX,  # noqa: E402
                                              SELECTIVITIES)
 from repro_torch.core.distances import brute_force_topk  # noqa: E402
@@ -99,6 +109,8 @@ from repro_torch.core.distributed import (ShardedNavix,  # noqa: E402
 from repro_torch.core.graph import check_symmetric_fraction  # noqa: E402
 from repro_torch.core.navix import NavixConfig, NavixIndex  # noqa: E402
 from repro_torch.core.quantize import QuantizedStore, quantize  # noqa: E402
+from repro_torch.data.graph_sampler import (NeighborSampler,  # noqa: E402
+                                             random_power_law_graph)
 from repro_torch.data.synthetic import (WikiLike,  # noqa: E402
                                         correlation_ratio, gaussian_mixture,
                                         make_queries, person_chunk_plan,
@@ -113,6 +125,8 @@ from repro_torch.kernels import (_build, distance_matrix,  # noqa: E402
                                  gather_distance, ops, quantized,
                                  quantized_gather_distance, ref, segment_sum)
 from repro_torch.models import api as model_api  # noqa: E402
+from repro_torch.models import gnn  # noqa: E402
+from repro_torch.training import loop as train_loop  # noqa: E402
 
 # GIST1M (TEXMEX; the paper's Table 2): 1M vectors of width 960, l2
 N_GIST = 1_000_000
@@ -123,7 +137,8 @@ N_QUERIES = 1024
 K = 100
 EFS = 200
 BUILD_MORSEL = 2048          # the paper's morsel size
-PARITY_LANES = 8            # per sigma and per arm (f32, int8)
+# per sigma and per arm (f32, int8); cut from 8 to make room for [gnn]
+PARITY_LANES = 4
 PARITY_SIGMAS = (1.0, 0.1, 0.01)
 # kernel vs plain version: a different f32 summation order
 RTOL, ATOL = 1e-5, 1e-4
@@ -231,9 +246,10 @@ SERVICE_WAIT_S = 300.0
 # the int8 entry: requests over the first two plans of SERVE_PLANS
 SERVE_INT8_REQUESTS = 1024
 # [shard]: a ShardedNavix of 4 shards on the one card over the first rows of
-# the 1M data (n_local 32,768, one padded row): the whole 1M rows would add
-# about 380 s of build to a run that must end inside 1200 s
-SHARD_ROWS = 131_071
+# the 1M data (n_local 16,384, one padded row): the whole 1M rows would add
+# about 380 s of build to a run that must end inside 1200 s (cut from
+# 131,071 rows to make room for [gnn])
+SHARD_ROWS = 65_535
 SHARD_COUNT = 4
 SHARD_SIGMAS = (1.0, 0.4, 0.1, 0.0, 0.03, 0.7)   # the lanes' mask cycle
 SHARD_SHARED_SIGMA = 0.1
@@ -249,6 +265,28 @@ SHARD_SERVICE_LANES = 64
 # the (2, 4) grid's pass: its first lanes only (all six sigmas in each of
 # its two blocks); it checks the layout, not the throughput
 SHARD_GRID_LANES = 256
+# [gnn]: meshgraphnet's full CONFIG trained on minibatch_lg blocks (the
+# Reddit regime: 1024 seeds, fanouts 15 and 10, d_feat 602) sampled from a
+# power-law graph of the shape's 232,965 nodes, at an average degree cut
+# from the shape's 492 to GNN_AVG_DEGREE for host time (~10x less
+# generation); every block keeps its shape and a node's out-degree stays far
+# above the fanout
+GNN_ARCH = "meshgraphnet"
+GNN_SHAPE = "minibatch_lg"
+GNN_AVG_DEGREE = 49
+GNN_STEPS = 6               # AdamW steps through training.loop.train ...
+GNN_CKPT_EVERY = 3          # ... checkpointed every 3, then one resumed step
+# the block of the f32 card-vs-CPU model check (5,312 node rows, unpadded:
+# the CPU copy of a full block takes over a minute)
+GNN_CHECK_SEEDS = 32
+# that check's tolerance: each leaf's max abs difference over its largest
+# value. f32 on both sides, but other summation orders (cuBLAS against CPU
+# BLAS; the gathers' backward scatter-adds atomically on the card) through
+# 15 blocks and their LayerNorms. Permuting a block's edges alone moves
+# CPU gradients by up to 6.3e-4 of a leaf's largest value (median 9e-5);
+# the card's first run differed by 1.3e-3 at most (median ~1.5e-4); a
+# wrong index or dtype is O(1)
+GNN_REL_TOL = 5e-3
 F32_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
 INT8_SOURCE = "src/repro_torch/kernels/csrc/quantized_gather_distance.cu"
 TPU_KERNELS = "src/repro/kernels/gather_distance.py"
@@ -403,14 +441,16 @@ def kernel_entry(name: str, max_abs: float, timing: tuple,
             "library_ms": library_ms}
 
 
-def device_ops(prof) -> list[tuple[str, float, int]]:
-    """(name, device ms, count) of each device op (kernel, copy, fill) that
-    a torch.profiler run saw. Only device events are read: a CPU op's own
-    device time repeats that of the kernels it launched."""
+def device_ops(averages) -> list[tuple[str, float, int]]:
+    """(name, device ms, count) of each device op (kernel, copy, fill) in
+    a torch.profiler run's ``key_averages()`` (taken once: on a pass of
+    ~63,000 launches each call costs many seconds of host time). Only
+    device events are read: a CPU op's own device time repeats that of the
+    kernels it launched."""
     from torch.autograd import DeviceType
 
     return [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in averages
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
 
@@ -1318,6 +1358,279 @@ def phase_kernel_segment() -> dict:
     return entry
 
 
+def _gnn_block(sampler: NeighborSampler, feats: np.ndarray,
+               targets: np.ndarray, rng: np.random.Generator, n_seeds: int,
+               d_edge: int, rows: tuple[int, int], device) -> dict:
+    """One sampled block (``n_seeds`` distinct seeds), its node and edge
+    rows padded to ``rows`` (-1 edges, zero features, masked nodes), as
+    tensors on ``device``."""
+    seeds = rng.choice(len(feats), size=n_seeds, replace=False)
+    b = sampler.block_batch(seeds, feats, targets, d_edge=d_edge)
+    for k, v in b.items():
+        pad = rows[k.startswith("edge_")] - len(v)
+        check(pad >= 0, f"[gnn] a block's {k} has {len(v)} rows > {rows}")
+        fill = -1 if k in ("edge_src", "edge_dst") else 0
+        b[k] = np.concatenate([v, np.full((pad,) + v.shape[1:], fill,
+                                          v.dtype)])
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def gnn_graph():
+    """[gnn]'s host graph: ``random_power_law_graph`` at the shape's
+    nodes and feature width, GNN_AVG_DEGREE edges a node, seed 0."""
+    shape = get_arch(GNN_ARCH).shape(GNN_SHAPE)
+    return random_power_law_graph(shape["n_nodes"], GNN_AVG_DEGREE,
+                                  shape["d_feat"], seed=0)
+
+
+def _to_cpu(tree):
+    paths, treedef = tree_flatten_with_path(tree)
+    return tree_unflatten(treedef, [t.cpu() for _, t in paths])
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (both on the CPU, as f32)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+def phase_gnn(smi: str, graph) -> int:
+    """MeshGraphNet's full CONFIG (15 blocks, d_hidden 128, bf16 compute,
+    remat) trained on minibatch_lg blocks through the port's loop, kernel 7
+    aggregating every block's messages. Checks: every kernel-7 call of a
+    forward against its plain version on the same inputs; the segment
+    sum's backward against autograd through the plain version, bit for
+    bit; at f32 compute, one forward and every parameter gradient on the
+    card against a CPU copy of the same block and parameters; GNN_STEPS
+    AdamW steps through ``training.loop.train`` with checkpoints, every loss
+    finite, the last checkpoint reloaded equal to the trained tree bit for
+    bit, and one more step resumed from it; kernel 7's launches on that path
+    = steps x blocks x 2 (remat) x its launches a call, and no other
+    kernel's. Then one step profiled: kernel 7's device ms and share beside
+    its bound. ``graph`` is ``_timed_call(gnn_graph)``'s result. Returns
+    the path's kernel-7 launches."""
+    t_phase = time.perf_counter()
+    stages, t_lap = {}, [t_phase]
+
+    def lap(name: str) -> None:
+        """Seconds since the previous stage, as stage ``name``."""
+        sync()
+        now = time.perf_counter()
+        stages[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    arch = get_arch(GNN_ARCH)
+    shape = arch.shape(GNN_SHAPE)
+    cfg = model_api.resolve_config(arch.config, shape)
+    n_pad, e_pad = model_api._gnn_block_sizes(shape)
+    fanouts = (shape["fanout1"], shape["fanout2"])
+    (csr, feats), graph_s = graph
+    rng = np.random.default_rng(1)
+    targets = rng.normal(size=(len(feats), cfg.out_dim)).astype(np.float32)
+    sampler = NeighborSampler(csr, fanouts=fanouts, seed=0)
+    lap("targets")
+    sample_s = []
+
+    def block(n_seeds=shape["batch_nodes"]):
+        """A block of ``n_seeds`` seeds: padded to the shape's rows for
+        the batch size, to its own rows for a smaller one."""
+        t0 = time.perf_counter()
+        rows = ((n_pad, e_pad) if n_seeds == shape["batch_nodes"]
+                else sampler.block_sizes(n_seeds))
+        b = _gnn_block(sampler, feats, targets, rng, n_seeds,
+                       cfg.in_edge_dim, rows, "cuda")
+        sample_s.append(time.perf_counter() - t0)
+        return b
+
+    first = block()
+    specs = model_api.input_specs(cfg, shape)
+    check(all((tuple(first[k].shape), first[k].dtype) == specs[k]
+              for k in specs) and first.keys() == specs.keys(),
+          f"[gnn] a block's tensors differ from input_specs {specs}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = gnn.init_gnn(cfg, gen, "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    lap("block+init")
+
+    # 1. every kernel-7 call of a forward against its plain version
+    calls = []
+    real = ops._segment_sum
+
+    def spy(messages, dst_sorted, n):
+        out = real(messages, dst_sorted, n)
+        calls.append((messages.detach(), dst_sorted, n, out))
+        return out
+
+    with torch.no_grad(), mock.patch.object(ops, "_segment_sum", spy):
+        pred = gnn.gnn_forward(cfg, params, first)
+    sync()
+    check(len(calls) == cfg.n_layers and tuple(pred.shape) == (n_pad, 3)
+          and bool(torch.isfinite(pred).all()),
+          f"[gnn] a forward made {len(calls)} segment sums, predictions "
+          f"{tuple(pred.shape)}")
+    k7_err = max(_check_close(out, ref.csr_segment_sum(m, d, n), SEGMENT_TOL,
+                              f"[gnn] block {i}'s aggregate")
+                 for i, (m, d, n, out) in enumerate(calls))
+    msgs, dst, n, _ = calls[0]
+    calls.clear()
+    # 2. the Function's backward against autograd through the plain version
+    gout = torch.randn((n, msgs.shape[1]), generator=gen, device="cuda")
+    a = msgs.clone().requires_grad_(True)
+    ops.csr_segment_sum(a, dst, n).backward(gout)
+    b = msgs.clone().requires_grad_(True)
+    ref.csr_segment_sum(b, dst, n).backward(gout)
+    check(torch.equal(a.grad, b.grad),
+          "[gnn] the segment sum's backward differs from autograd through "
+          "its plain version")
+    del a, b, gout, msgs
+    lap("kernel-7 checks")
+    fwd_ms = []
+    with torch.no_grad():
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            gnn.gnn_forward(cfg, params, first)
+            sync()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+
+    lap("forward timing")
+    # 3. the whole model at f32 on the card against a CPU copy
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    small = block(GNN_CHECK_SEEDS)
+    loss_fn = model_api.model_api(cfg32).loss
+    lap("check block")
+    loss_c, _, grads_c = model_api.value_and_grad(loss_fn, params, small)
+    pred_c = gnn.gnn_forward(cfg32, params, small)
+    lap("f32 check, card")
+    params_h, small_h = _to_cpu(params), _to_cpu(small)
+    loss_h, _, grads_h = model_api.value_and_grad(loss_fn, params_h, small_h)
+    pred_h = gnn.gnn_forward(cfg32, params_h, small_h)
+    lap("f32 check, CPU copy")
+    errs = {"predictions": _rel_err(pred_c, pred_h),
+            "loss": _rel_err(loss_c, loss_h)}
+    for (path, g), h in zip(tree_flatten_with_path(grads_c)[0],
+                            tree_leaves(grads_h)):
+        errs["grad " + ".".join(path)] = _rel_err(g, h)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= GNN_REL_TOL,
+          f"[gnn] f32 model on the card vs its CPU copy: relative errors "
+          f"{errs} (limit {GNN_REL_TOL})")
+    del grads_c, grads_h, params_h, small_h
+
+    # 4. the main path: train, checkpoint, reload, resume
+    blocks = iter([first])
+
+    def data():
+        while True:
+            yield next(blocks, None) or block()
+
+    per_call = segment_sum.launches(e_pad, cfg.d_hidden)
+    per_step = cfg.n_layers * (2 if cfg.remat else 1) * per_call
+    with tempfile.TemporaryDirectory(prefix="gnn_", dir=ROOT) as tmp:
+        lc = train_loop.LoopConfig(total_steps=GNN_STEPS,
+                                   checkpoint_every=GNN_CKPT_EVERY,
+                                   checkpoint_dir=tmp)
+        it = data()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        st = train_loop.train(cfg, it, lc, init_gen=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        latest = store.latest_complete(tmp)
+        like = model_api.abstract_params(cfg)
+        back = store.load(latest, {"params": like, "opt":
+                                   model_api.abstract_opt_state(cfg, like)},
+                          device="cuda")
+        check(latest.name == f"step_{GNN_STEPS:08d}" and all(
+            torch.equal(x, y) for x, y in zip(
+                tree_leaves(back),
+                tree_leaves({"params": st.params, "opt": st.opt_state}))),
+              "[gnn] the reloaded checkpoint differs from the trained tree")
+        resumed = train_loop.train(cfg, it, dataclasses.replace(
+            lc, total_steps=GNN_STEPS + 1), device="cuda")
+        launched = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        kept = sorted(p.name for p in pathlib.Path(tmp).iterdir())
+    losses = [m["loss"] for m in st.metrics_history + resumed.metrics_history]
+    check(len(losses) == GNN_STEPS + 1 and resumed.step == GNN_STEPS + 1
+          and all(np.isfinite(losses)),
+          f"[gnn] losses {losses}, resumed at step {resumed.step}")
+    launches = launched["csr_segment_sum"]
+    check(launches == (GNN_STEPS + 1) * per_step
+          and all(v == 0 for k, v in launched.items()
+                  if k != "csr_segment_sum"),
+          f"[gnn] launches {launched}; expected csr_segment_sum "
+          f"{(GNN_STEPS + 1) * per_step} and nothing else")
+
+    lap("train + resume")
+    # 5. one step profiled
+    from torch.profiler import ProfilerActivity, profile
+    step_fn, _ = train_loop.make_compressed_train_step(cfg, lc)
+    comp = train_loop.init_state(resumed.params)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        step_fn(resumed.params, resumed.opt_state, comp, first)
+        sync()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    lap("profiled step")
+    ops_ms = device_ops(prof.key_averages())
+    busy = sum(t for _, t, _ in ops_ms)
+    k7_ms = sum(t for k, t, _ in ops_ms if "segment_span_kernel" in k
+                or "segment_fixup_kernel" in k)
+    check(busy > 0 and k7_ms > 0,
+          f"[gnn] the profiler saw {busy} ms of device time, kernel 7 "
+          f"{k7_ms}")
+    d = cfg.d_hidden
+    b_s, by = bound_s(4 * e_pad * d + 4 * e_pad + 4 * n_pad * d, e_pad * d)
+    calls_per_step = per_step // per_call
+    bound_ms = b_s * 1e3 * calls_per_step
+    top = sorted(ops_ms, key=lambda o: -o[1])[:5]
+    step_ms = [t * 1e3 for t in st.step_seconds + resumed.step_seconds]
+    print(f"[gnn] {arch.arch_id} CONFIG ({cfg.n_layers} blocks, d_hidden "
+          f"{d}, compute {cfg.compute_dtype}, params {cfg.param_dtype}, "
+          f"remat {cfg.remat}; {n_params:,} parameters) on {GNN_SHAPE} "
+          f"blocks: {shape['batch_nodes']} seeds, fanouts {fanouts}, "
+          f"{n_pad:,} node rows, {e_pad:,} edge rows, d_feat "
+          f"{cfg.in_node_dim}; graph random_power_law_graph("
+          f"{shape['n_nodes']:,}, {GNN_AVG_DEGREE}, {shape['d_feat']}) "
+          f"{csr.n_edges:,} edges {graph_s:.1f}s on a host worker thread, a block "
+          f"sampled in {np.median(sample_s):.2f}s (median of "
+          f"{len(sample_s)})", flush=True)
+    print(f"[gnn] checks: {cfg.n_layers} kernel-7 calls of a forward == "
+          f"plain version (max abs err {k7_err:.3e}, rtol = atol = "
+          f"{SEGMENT_TOL}); backward == autograd through the plain version "
+          f"bit for bit; f32 model on the card vs its CPU copy "
+          f"({GNN_CHECK_SEEDS}-seed block): relative error "
+          f"{errs['predictions']:.3e} in the predictions, "
+          f"{errs['loss']:.3e} in the loss, at most {errs[worst]:.3e} "
+          f"({worst}) over them and {len(errs) - 2} gradient leaves (median "
+          f"{np.median(list(errs.values())):.3e}; limit {GNN_REL_TOL}); "
+          f"checkpoint {latest.name} reloaded == the trained tree bit for "
+          f"bit, kept {kept}", flush=True)
+    print(f"[gnn] {GNN_STEPS} AdamW steps + 1 resumed, losses "
+          + ", ".join(f"{x:.5f}" for x in losses)
+          + f"; step ms " + ", ".join(f"{t:.1f}" for t in step_ms)
+          + f" (median after the first {np.median(step_ms[1:]):.2f}); "
+          f"forward (no grad) {np.median(fwd_ms):.2f} ms; peak memory "
+          f"{peak:,} B; "
+          f"csr_segment_sum {launches} launches = {GNN_STEPS + 1} steps x "
+          f"{per_step} ({cfg.n_layers} blocks x 2 (remat recompute) x "
+          f"{per_call} a call), no other kernel", flush=True)
+    print(f"[gnn] one step profiled: wall {prof_ms:.2f} ms, device busy "
+          f"{busy:.3f} ms; kernel 7 {k7_ms:.3f} ms ({100 * k7_ms / busy:.1f}%"
+          f" of device time) for {calls_per_step} calls, bound "
+          f"{bound_ms:.3f} ms ({by}; {100 * bound_ms / k7_ms:.1f}% of it); "
+          "top: " + "; ".join(f"{k[:50]} {t:.3f} ms x{c}"
+                              for k, t, c in top)
+          + f"; {smi}; phase {time.perf_counter() - t_phase:.1f}s (stages: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()) + ")",
+          flush=True)
+    return launches
+
+
 def phase_recsys() -> int:
     """The recsys retrieval step of BST at full width: its parameters made
     on the card, then RETRIEVAL_REQUESTS requests at ``retrieval_cand``,
@@ -1416,7 +1729,7 @@ def _profile_request(step, params, batch) -> None:
         step(params, batch)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops_ms = device_ops(prof)
+    ops_ms = device_ops(prof.key_averages())
     busy_ms = sum(t for _, t, _ in ops_ms)
     check(busy_ms > 0, "the profiler saw no device time in a request")
     top = sorted(ops_ms, key=lambda o: -o[1])[:6]
@@ -1427,6 +1740,13 @@ def _profile_request(step, params, batch) -> None:
           f"distance_matrix kernel {kernel_ms:.4f} ms of them; top: "
           + "; ".join(f"{k[:60]} {t:.4f} ms x{c}" for k, t, c in top),
           flush=True)
+
+
+def _timed_call(fn, *args) -> tuple:
+    """(fn(*args), its wall seconds)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
 
 
 def make_data(n: int):
@@ -1649,11 +1969,11 @@ def phase_profile(idx, Q: np.ndarray, mask) -> None:
         idx.search_many(Q, k=K, efs=EFS, semimask=mask)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops_ms = device_ops(prof)
+    averages = prof.key_averages()
+    ops_ms = device_ops(averages)
     device_ms = sum(t for _, t, _ in ops_ms)
     kernel_ms = _gather_kernel_ms(ops_ms, int8=False)
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.key == "cudaLaunchKernel")
+    launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
     check(device_ms > 0, "the profiler saw no device time")
     print(f"[profile] sigma=0.1, one pass of B={len(Q)} under torch.profiler:"
           f" wall {wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
@@ -1746,7 +2066,7 @@ def _profile_single(search_one, q, mask, int8: bool) -> tuple:
         search_one(q, k=K, efs=EFS, semimask=mask)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops_ms = device_ops(prof)
+    ops_ms = device_ops(prof.key_averages())
     busy_ms = sum(t for _, t, _ in ops_ms)
     check(busy_ms > 0, "the profiler saw no device time in a search")
     return (wall_ms, busy_ms, _gather_kernel_ms(ops_ms, int8),
@@ -2730,9 +3050,16 @@ def main() -> int:
         return out
 
     smi = phase_device()
-    # one compile counter over the whole run: nvcc runs only in the
-    # builds; later phases mark their steady windows
-    with CompileCounter() as cc:
+    # the host's data (the 1M mixture, [gnn]'s graph) is made on worker
+    # threads while the kernels build and the kernel phases run (numpy
+    # releases the interpreter lock in its bulk draws, sorts and copies,
+    # and those phases wait on nvcc or time on the card), and is waited
+    # for before [recsys], the first phase timed on the host's clock. One
+    # compile counter spans the run: nvcc runs only in the builds; later
+    # phases mark their steady windows
+    with ThreadPoolExecutor(2) as host, CompileCounter() as cc:
+        gist_data = host.submit(_timed_call, make_data, N)
+        gnn_data = host.submit(_timed_call, gnn_graph)
         timed("nvcc", phase_build_kernels)
         cc.mark("steady")
         timed("floor", phase_launch_floor)
@@ -2744,14 +3071,20 @@ def main() -> int:
         kernels += timed("kernel_quantized", phase_kernel_quantized)
         kernels.append(timed("kernel_segment", phase_kernel_segment))
         kernels = {k["name"]: k for k in kernels}
+        (X, labels, centers, Q), made_s = timed("data", gist_data.result)
+        print(f"[data] gaussian_mixture({N:,}, {DIM}, {N_CLUSTERS}, seed=0) "
+              f"and {N_QUERIES} queries on the host: {made_s:.1f}s on a "
+              f"worker thread, {seconds['data']:.1f}s waited for", flush=True)
+        graph = timed("gnn_graph", gnn_data.result)
         # the recsys retrieval path, its counts read just after its requests
         kernels["distance_matrix"]["launches"] = timed("recsys", phase_recsys)
         torch.cuda.empty_cache()
+        # the GNN training path, its counts read just after its steps
+        gnn_launches = timed("gnn", phase_gnn, smi, graph)
+        kernels["csr_segment_sum"]["launches"] += gnn_launches
+        del graph
+        torch.cuda.empty_cache()
 
-        X, labels, centers, Q = timed("data", make_data, N)
-        print(f"[data] gaussian_mixture({N:,}, {DIM}, {N_CLUSTERS}, seed=0) "
-              f"and {N_QUERIES} queries on the host: {seconds['data']:.1f}s",
-              flush=True)
         masks = make_masks(len(X), SELECTIVITIES)
         masks[1.0] = None
         sweep = {s: masks[s] for s in SELECTIVITIES}
@@ -2836,9 +3169,11 @@ def main() -> int:
           f"{kernels['quantized_distance_matrix']['launches']} on its "
           f"streaming path and "
           f"{kernels['quantized_distance_matrix_wgmma']['launches']} on its "
-          f"tensor-core path, and csr_segment_sum "
-          f"{kernels['csr_segment_sum']['launches']}, through their ops "
-          f"entries (their whole path)", flush=True)
+          f"tensor-core path, through their ops entries (their whole path); "
+          f"csr_segment_sum {kernels['csr_segment_sum']['launches']}: "
+          f"{kernels['csr_segment_sum']['launches'] - gnn_launches} through "
+          f"its ops entry and {gnn_launches} in [gnn]'s training steps",
+          flush=True)
     print(f"[launches] gather_distance_batch: {build_launches} in the build "
           f"({build_spread} of them spread), "
           f"{kernels['gather_distance_batch']['launches'] - build_launches} "

@@ -1,15 +1,16 @@
-"""Typed configuration: shapes, the recsys model config and the arch
-registry (port of ``repro.config.base``).
+"""Typed configuration: shapes, the GNN and recsys model configs and the
+arch registry (port of ``repro.config.base``).
 
 Every architecture the port runs is a module in ``repro_torch.configs``
 that builds an :class:`ArchDef` (full-size config, its shape set and a
 reduced smoke config) and registers it under its id. The language-model
-and GNN configs belong to later slices of the port.
+configs (``LMConfig``, ``MoEConfig``) belong to a later slice of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Mapping, Optional
 
 #: shape kinds determine which step function a cell drives:
@@ -49,6 +50,25 @@ class ShapeSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    arch_id: str
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "sum"             # segment_sum
+    mlp_layers: int = 2
+    in_node_dim: int = 16               # overridden per-shape (d_feat)
+    in_edge_dim: int = 4
+    out_dim: int = 3                    # meshgraphnet predicts accelerations
+    layer_norm: bool = True
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    optimizer: str = "adamw"
+
+    family: str = "gnn"
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     arch_id: str
     model: str                           # wide_deep | deepfm | dien | bst
@@ -75,7 +95,7 @@ class RecsysConfig:
         return sum(self.field_vocabs) + (self.item_vocab if self.seq_len else 0)
 
 
-AnyConfig = Any  # RecsysConfig (LM and GNN configs come with their slices)
+AnyConfig = Any  # GNNConfig | RecsysConfig (LMConfig comes with its slice)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,3 +136,7 @@ def get_arch(arch_id: str) -> ArchDef:
 def list_archs() -> list[str]:
     import repro_torch.configs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def config_to_json(cfg: AnyConfig) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)

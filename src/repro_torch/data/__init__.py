@@ -1,1 +1,2 @@
-"""Synthetic datasets (counterpart of ``repro.data``)."""
+"""Synthetic datasets and the GNN neighbor sampler (counterpart of
+``repro.data``)."""

@@ -103,12 +103,49 @@ def quantized_distance_matrix(Q: torch.Tensor, codes: torch.Tensor,
 
 def csr_segment_sum(messages: torch.Tensor, dst_sorted: torch.Tensor,
                     n: int) -> torch.Tensor:
-    """Sorted segment sum -> f32[n, d]. messages[E, d], dst_sorted[E]
-    ascending; -1 padding is allowed only where it sorts as if it were
-    +inf (callers put it at the end): it is mapped to ``PAD_SENTINEL``."""
+    """Sorted segment sum -> f32[n, d]. messages[E, d] of any float type
+    (summed in f32), dst_sorted[E] ascending; -1 padding is allowed only
+    where it sorts as if it were +inf (callers put it at the end): it is
+    mapped to ``PAD_SENTINEL``.
+
+    Differentiable in ``messages``: when they require a gradient the call
+    goes through :class:`SegmentSum`, whose forward is this same dispatch
+    and whose backward is a gather."""
+    if messages.requires_grad:
+        return SegmentSum.apply(messages, dst_sorted, n)
+    return _segment_sum(messages, dst_sorted, n)
+
+
+def _segment_sum(messages: torch.Tensor, dst_sorted: torch.Tensor,
+                 n: int) -> torch.Tensor:
     if _device("csr_segment_sum", messages, dst_sorted) == "cuda":
         dst = torch.where(dst_sorted < 0, segment_kernel.PAD_SENTINEL,
                           dst_sorted).to(torch.int32)
         return segment_kernel.csr_segment_sum(
             messages.to(torch.float32).contiguous(), dst.contiguous(), n)
     return ref.csr_segment_sum(messages, dst_sorted, n)
+
+
+class SegmentSum(torch.autograd.Function):
+    """The segment sum with its gradient. Forward: the dispatch above
+    (kernel 7 on a CUDA tensor, its plain version on a CPU one). Backward:
+    ``grad_messages[e] = grad_out[dst[e]]`` where ``0 <= dst[e] < n``, else
+    0, in the messages' dtype: the transpose of a segment sum is a gather,
+    as ``jax.ops.segment_sum``'s is, and the TPU package has no backward
+    kernel, so neither has the port."""
+
+    @staticmethod
+    def forward(ctx, messages: torch.Tensor, dst_sorted: torch.Tensor,
+                n: int) -> torch.Tensor:
+        ctx.save_for_backward(dst_sorted)
+        ctx.n = n
+        ctx.msg_dtype = messages.dtype
+        return _segment_sum(messages, dst_sorted, n)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        (dst,) = ctx.saved_tensors
+        ok = (dst >= 0) & (dst < ctx.n)
+        g = grad_out[torch.where(ok, dst, 0).long()]
+        g = torch.where(ok[:, None], g, 0)
+        return g.to(ctx.msg_dtype), None, None

@@ -1,35 +1,112 @@
-"""Family-dispatch model API for the recsys family (port of the recsys
-parts of ``repro.models.api``).
+"""Family-dispatch model API (port of ``repro.models.api``) for the GNN
+and recsys families.
 
     api = model_api(arch.config)
-    params = api.init(generator, device)
-    step = make_retrieval_step(cfg, k=100)       (params, batch) -> (vals, ids)
-    specs = input_specs(cfg, shape)              (shape, dtype) per input
-    batch = make_batch(cfg, shape, generator, device)
+    params = api.init(generator, device)          (device "meta": shapes only)
+    step, opt = make_train_step(cfg)              (params, opt, batch) -> ...
+    specs = input_specs(cfg, shape)               (shape, dtype) per input
+    batch = make_batch(cfg, shape, generator, device)       (recsys)
 
-``loss`` and the train step wait for the training slice; the LM and GNN
-families for theirs.
+A step takes and returns plain trees of tensors. The recsys loss and serve
+step (``recsys_forward``, DIEN's AUGRU scan, BST's blocks) wait for the
+ranking slice; the LM family (``transformer.py``, ``LMConfig``) for its
+own; both raise, naming it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.config.base import RecsysConfig, ShapeSpec
-from repro_torch.models import recsys
+from repro_torch.common.util import (round_up, tree_flatten_with_path,
+                                     tree_unflatten)
+from repro_torch.config.base import GNNConfig, RecsysConfig, ShapeSpec
+from repro_torch.models import gnn, recsys
+from repro_torch.training.optimizer import make_optimizer
+
+_RANKING = "the ranking slice of the port (recsys_forward / recsys_loss)"
+_LM = "the LM slice of the port (transformer.py, LMConfig)"
 
 
 class ModelAPI(NamedTuple):
     init: Callable                       # (generator, device) -> params
+    loss: Callable                       # (params, batch) -> (loss, metrics)
+    family: str
+
+
+def _waits(what: str, slice_name: str):
+    def raise_(*args, **kwargs):
+        raise NotImplementedError(f"{what} waits for {slice_name}")
+    return raise_
 
 
 def model_api(cfg) -> ModelAPI:
+    if isinstance(cfg, GNNConfig):
+        return ModelAPI(init=functools.partial(gnn.init_gnn, cfg),
+                        loss=functools.partial(gnn.gnn_loss, cfg),
+                        family="gnn")
     if isinstance(cfg, RecsysConfig):
-        return ModelAPI(init=functools.partial(recsys.init_recsys, cfg))
-    raise TypeError(f"the port has no model API for {type(cfg).__name__} yet")
+        return ModelAPI(init=functools.partial(recsys.init_recsys, cfg),
+                        loss=_waits("the recsys loss", _RANKING),
+                        family="recsys")
+    raise TypeError(f"the port has no model API for {type(cfg).__name__} "
+                    f"yet: it waits for {_LM}")
+
+
+# ---------------------------------------------------------------------------
+# step functions
+# ---------------------------------------------------------------------------
+
+
+def value_and_grad(loss_fn, params, batch):
+    """``(loss, metrics, grads)`` of ``loss_fn(params, batch)``: the
+    gradient of the loss with respect to every leaf of ``params``, as a
+    tree of the same structure. ``params`` is not modified."""
+    paths, treedef = tree_flatten_with_path(params)
+    leaves = [p.detach().requires_grad_(True) for _, p in paths]
+    loss, metrics = loss_fn(tree_unflatten(treedef, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_unflatten(treedef, list(grads)))
+
+
+def make_train_step(cfg, lr: float | None = None):
+    """``(train_step, opt)``: ``train_step(params, opt_state, batch) ->
+    (params, opt_state, metrics)``, one backward pass and one update."""
+    api = model_api(cfg)
+    opt = make_optimizer(getattr(cfg, "optimizer", "adamw"), lr)
+
+    def train_step(params, opt_state, batch):
+        _, metrics, grads = value_and_grad(api.loss, params, batch)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, metrics
+
+    return train_step, opt
+
+
+def make_eval_step(cfg):
+    api = model_api(cfg)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        return api.loss(params, batch)[1]
+
+    return eval_step
+
+
+def make_decode_step(cfg):
+    raise NotImplementedError(f"the decode step waits for {_LM}")
+
+
+def make_prefill_step(cfg):
+    raise NotImplementedError(f"the prefill step waits for {_LM}")
+
+
+def make_serve_step(cfg: RecsysConfig):
+    raise NotImplementedError(f"the recsys serve step waits for {_RANKING}")
 
 
 def make_retrieval_step(cfg: RecsysConfig, k: int = 100):
@@ -44,15 +121,55 @@ def make_retrieval_step(cfg: RecsysConfig, k: int = 100):
     return retrieve
 
 
+def _pad512(x: int) -> int:
+    """Pad flat node and edge counts to a multiple of 512 (the reference's
+    rule, so that every mesh axis divides them; padding is -1-masked in
+    the model)."""
+    return round_up(x, 512)
+
+
+def _gnn_block_sizes(shape: ShapeSpec) -> tuple[int, int]:
+    """(n_nodes_pad, n_edges_pad) for each GNN shape kind."""
+    if shape.kind == "graph_full":
+        return _pad512(shape["n_nodes"]), _pad512(shape["n_edges"])
+    if shape.kind == "graph_minibatch":
+        b = shape["batch_nodes"]
+        f1, f2 = shape.get("fanout1", 15), shape.get("fanout2", 10)
+        n = b * (1 + f1 + f1 * f2)
+        e = b * (f1 + f1 * f2)
+        return _pad512(n), _pad512(e)
+    if shape.kind == "graph_batched":
+        g = shape["batch"]
+        return _pad512(g * shape["n_nodes"]), _pad512(g * shape["n_edges"])
+    raise ValueError(shape.kind)
+
+
+def resolve_config(cfg, shape: ShapeSpec):
+    """Shape-dependent config fields (a GNN's input feature width comes
+    from the dataset, i.e. the shape)."""
+    if isinstance(cfg, GNNConfig):
+        return dataclasses.replace(
+            cfg, in_node_dim=shape.get("d_feat", cfg.in_node_dim))
+    return cfg
+
+
 def input_specs(cfg, shape: ShapeSpec) -> dict[str, tuple[tuple, torch.dtype]]:
-    """Step inputs of one (arch, shape) cell as ``(shape, dtype)`` pairs,
-    for the ``recsys_serve`` and ``recsys_retrieval`` kinds."""
+    """Step inputs of one (arch, shape) cell as ``(shape, dtype)`` pairs:
+    the ``graph_*`` kinds, and ``recsys_serve`` / ``recsys_retrieval``."""
+    if isinstance(cfg, GNNConfig):
+        n, e = _gnn_block_sizes(shape)
+        d_feat = shape.get("d_feat", cfg.in_node_dim)
+        return {"node_feats": ((n, d_feat), torch.float32),
+                "edge_src": ((e,), torch.int32),
+                "edge_dst": ((e,), torch.int32),
+                "edge_feats": ((e, cfg.in_edge_dim), torch.float32),
+                "node_targets": ((n, cfg.out_dim), torch.float32),
+                "node_mask": ((n,), torch.bool)}
     if not isinstance(cfg, RecsysConfig):
         raise TypeError(f"the port has no input specs for "
-                        f"{type(cfg).__name__} yet")
+                        f"{type(cfg).__name__} yet: it waits for {_LM}")
     if shape.kind not in ("recsys_serve", "recsys_retrieval"):
-        raise ValueError(f"shape kind {shape.kind!r} waits for its slice of "
-                         f"the port (serve and retrieval only)")
+        raise ValueError(f"shape kind {shape.kind!r} waits for {_RANKING}")
     hot = max(cfg.multi_hot_sizes) if cfg.multi_hot_sizes else 1
     b = shape.get("batch", 1)
     specs = {"dense": ((b, cfg.n_dense), torch.float32),
@@ -63,6 +180,19 @@ def input_specs(cfg, shape: ShapeSpec) -> dict[str, tuple[tuple, torch.dtype]]:
     if shape.kind == "recsys_retrieval":
         specs["candidates"] = ((shape["n_candidates"],), torch.int32)
     return specs
+
+
+def abstract_params(cfg) -> Any:
+    """The parameter tree on the ``meta`` device: shapes and dtypes, no
+    allocation."""
+    return model_api(cfg).init(None, "meta")
+
+
+def abstract_opt_state(cfg, params_spec) -> Any:
+    """The optimizer state of ``params_spec`` (on its device: ``meta``
+    for :func:`abstract_params`'s tree)."""
+    return make_optimizer(getattr(cfg, "optimizer", "adamw")).init(
+        params_spec)
 
 
 def make_batch(cfg: RecsysConfig, shape: ShapeSpec, gen: torch.Generator,

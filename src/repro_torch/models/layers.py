@@ -1,11 +1,12 @@
 """Shared layers in functional form (port of the parts of
-``repro.models.layers`` that the recsys init and retrieval step need).
+``repro.models.layers`` that the recsys init and retrieval step and the
+GNN need).
 
 Parameters are plain dicts and tuples of tensors. Every init takes an
 explicit ``torch.Generator`` and a device; on the ``"meta"`` device it
-allocates nothing, which gives a tree's shapes. The forward layers
-(``layernorm``, ``mha``, ``gated_mlp``, ``mlp_stack``) come with the
-ranking slice.
+allocates nothing, which gives a tree's shapes. The other forward layers
+(``rmsnorm``, ``mha``, ``gated_mlp``, ``mlp_stack``, ``rope``) come with
+the ranking and LM slices.
 """
 
 from __future__ import annotations
@@ -36,6 +37,20 @@ def layernorm_init(dim, dtype, device, layers=None) -> dict:
     shape = (dim,) if layers is None else (layers, dim)
     return {"scale": torch.ones(shape, dtype=_dtype(dtype), device=device),
             "bias": torch.zeros(shape, dtype=_dtype(dtype), device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis: statistics in f32 (biased variance),
+    ``(x - mu) * rsqrt(var + eps) * scale + bias``, cast back to x's
+    dtype."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = (y * params["scale"].to(torch.float32)
+         + params["bias"].to(torch.float32))
+    return y.to(x.dtype)
 
 
 def gated_mlp_init(gen: torch.Generator, d, f, dtype, device,
