@@ -17,13 +17,21 @@ segment sum on the ogb_products graph and on a power-law graph of its
 size, hub rows against float64),
 answers 8 recsys retrieval requests of BST at full width (1M candidates
 out of a 5M-item table, through the all-pairs kernel, each answer held
-against the plain path, one of them profiled), trains MeshGraphNet's full
+against the plain path, one of them profiled), serves and trains the
+recsys ranking models BST and DIEN at full width (``[rank]``: 20
+serve_p99 requests and one serve_bulk request through the serve step,
+which equals ``recsys_forward`` bit for bit; logits, loss and every
+gradient against a CPU copy; 3 AdamW steps through ``make_train_step``,
+BST at train_batch's 65,536 rows and DIEN at 32,768, one step profiled; no
+kernel of the port launched, since the ranking path has none), trains
+MeshGraphNet's full
 config on Reddit-regime minibatch blocks sampled from a power-law graph
 through the port's checkpointed training loop, kernel 7 aggregating every
 block's messages (``[gnn]``: each kernel-7 call of a forward against its
-plain version, the segment sum's backward bit for bit, the f32 model on
-the card against its CPU copy, the reloaded checkpoint bit for bit, one
-step resumed and one profiled), builds a GIST1M-shaped index
+plain version, the segment sum's backward bit for bit, kernel 7 on a
+block timed in turns with ``torch.segment_reduce``, the f32 model on the
+card against its CPU copy, the reloaded checkpoint bit for bit, one step
+resumed and one profiled), builds a GIST1M-shaped index
 on the card (n = 1,000,000 x d = 960, l2, the paper's index settings),
 answers filtered batched queries at the paper's selectivities through
 ``NavixIndex.search_many``, makes the index int8-resident with
@@ -125,7 +133,7 @@ from repro_torch.kernels import (_build, distance_matrix,  # noqa: E402
                                  gather_distance, ops, quantized,
                                  quantized_gather_distance, ref, segment_sum)
 from repro_torch.models import api as model_api  # noqa: E402
-from repro_torch.models import gnn  # noqa: E402
+from repro_torch.models import gnn, recsys  # noqa: E402
 from repro_torch.training import loop as train_loop  # noqa: E402
 
 # GIST1M (TEXMEX; the paper's Table 2): 1M vectors of width 960, l2
@@ -137,8 +145,9 @@ N_QUERIES = 1024
 K = 100
 EFS = 200
 BUILD_MORSEL = 2048          # the paper's morsel size
-# per sigma and per arm (f32, int8); cut from 8 to make room for [gnn]
-PARITY_LANES = 4
+# per sigma and per arm (f32, int8); cut from 8 to 4 to make room for
+# [gnn], and to 2 for [rank]
+PARITY_LANES = 2
 PARITY_SIGMAS = (1.0, 0.1, 0.01)
 # kernel vs plain version: a different f32 summation order
 RTOL, ATOL = 1e-5, 1e-4
@@ -287,6 +296,20 @@ GNN_CHECK_SEEDS = 32
 # the card's first run differed by 1.3e-3 at most (median ~1.5e-4); a
 # wrong index or dtype is O(1)
 GNN_REL_TOL = 5e-3
+# [rank]: the ranking path of BST and DIEN at full CONFIG width
+RANK_ARCHS = ("bst", "dien")
+RANK_REQUESTS = 20          # serve_p99 requests a model
+RANK_STEPS = 3              # AdamW steps through make_train_step
+# train rows a model: train_batch's 65,536, but DIEN's are cut to the
+# largest power of two whose step peaks under ~60 GB: autograd keeps the
+# two 100-step scans' tensors, and on the H100 a step peaked at 34.1 GB at
+# 32,768 rows and 62.5 GB at 65,536
+RANK_TRAIN_ROWS = {"bst": 65_536, "dien": 32_768}
+RANK_CHECK_ROWS = 256       # rows of the card-vs-CPU-copy check
+# that check's limits: logits and loss at rtol 1e-4 / atol 1e-5 (TF32 off;
+# other summation orders); each gradient leaf within GNN_REL_TOL of its
+# largest value (the card's table[ids] backward scatter-adds atomically)
+RANK_RTOL, RANK_ATOL = 1e-4, 1e-5
 F32_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
 INT8_SOURCE = "src/repro_torch/kernels/csrc/quantized_gather_distance.cu"
 TPU_KERNELS = "src/repro/kernels/gather_distance.py"
@@ -359,6 +382,26 @@ def in_turns(time_one, names=("tiled", "spread")) -> dict[str, float]:
     for name in (*names, *reversed(names)):
         out[name] += time_one(name) / 2
     return out
+
+
+class Stages:
+    """Wall seconds of a phase's stages, each ending in a synchronize."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def lap(self, name: str) -> None:
+        """Seconds since the previous stage, as stage ``name``."""
+        sync()
+        now = time.perf_counter()
+        self.seconds[name] = now - self.last
+        self.last = now
+
+    def line(self) -> str:
+        return (f"{time.perf_counter() - self.start:.1f}s (stages: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in self.seconds.items())
+                + ")")
 
 
 class ColdIds:
@@ -1203,7 +1246,8 @@ def _in_turns_rounds(calls: dict, rounds: int, reps: int) -> dict:
     return out
 
 
-def _rounds_line(what: str, rounds: dict, labels: dict) -> str:
+def _rounds_line(what: str, rounds: dict, labels: dict,
+                 tag: str = "[kernel]") -> str:
     med = {k: float(np.median(v)) for k, v in rounds.items()}
     parts = [f"{labels[k]} median {med[k]:.4f} ms (range {min(v):.4f}-"
              f"{max(v):.4f}; per round {[round(x, 4) for x in v]})"
@@ -1211,7 +1255,7 @@ def _rounds_line(what: str, rounds: dict, labels: dict) -> str:
     first = next(iter(rounds))
     ratios = ", ".join(f"{first} / {k} {med[first] / med[k]:.4f}"
                        for k in list(rounds)[1:])
-    return f"[kernel] csr_segment_sum {what}: " + "; ".join(parts) + \
+    return f"{tag} csr_segment_sum {what}: " + "; ".join(parts) + \
         f"; {ratios}"
 
 
@@ -1408,17 +1452,11 @@ def phase_gnn(smi: str, graph) -> int:
     bit, and one more step resumed from it; kernel 7's launches on that path
     = steps x blocks x 2 (remat) x its launches a call, and no other
     kernel's. Then one step profiled: kernel 7's device ms and share beside
-    its bound. ``graph`` is ``_timed_call(gnn_graph)``'s result. Returns
-    the path's kernel-7 launches."""
-    t_phase = time.perf_counter()
-    stages, t_lap = {}, [t_phase]
-
-    def lap(name: str) -> None:
-        """Seconds since the previous stage, as stage ``name``."""
-        sync()
-        now = time.perf_counter()
-        stages[name] = now - t_lap[0]
-        t_lap[0] = now
+    its bound. Kernel 7 is also timed on the first block's first aggregate
+    in turns with ``torch.segment_reduce`` given its lengths. ``graph`` is
+    ``_timed_call(gnn_graph)``'s result. Returns the path's kernel-7
+    launches."""
+    lap = (stages := Stages()).lap
 
     arch = get_arch(GNN_ARCH)
     shape = arch.shape(GNN_SHAPE)
@@ -1472,7 +1510,7 @@ def phase_gnn(smi: str, graph) -> int:
     k7_err = max(_check_close(out, ref.csr_segment_sum(m, d, n), SEGMENT_TOL,
                               f"[gnn] block {i}'s aggregate")
                  for i, (m, d, n, out) in enumerate(calls))
-    msgs, dst, n, _ = calls[0]
+    msgs, dst, n, out0 = calls[0]
     calls.clear()
     # 2. the Function's backward against autograd through the plain version
     gout = torch.randn((n, msgs.shape[1]), generator=gen, device="cuda")
@@ -1483,7 +1521,22 @@ def phase_gnn(smi: str, graph) -> int:
     check(torch.equal(a.grad, b.grad),
           "[gnn] the segment sum's backward differs from autograd through "
           "its plain version")
-    del a, b, gout, msgs
+    del a, b, gout
+    # 3. kernel 7 on this block's first aggregate in turns with the library
+    # call given its lengths (the wrapper's own f32 cast and sentinel map
+    # done once, outside the timing)
+    m32 = msgs.to(torch.float32).contiguous()
+    dst_sent = torch.where(dst < 0, segment_sum.PAD_SENTINEL,
+                           dst).to(torch.int32).contiguous()
+    lengths = _library_lengths(dst_sent, n)
+    lib_calls = {
+        "kernel": lambda: segment_sum.csr_segment_sum(m32, dst_sent, n),
+        "library": lambda: torch.segment_reduce(
+            m32, "sum", lengths=lengths, axis=0, unsafe=True)}
+    lib_err = _check_close(lib_calls["library"]()[:n], out0, SEGMENT_TOL,
+                           "[gnn] torch.segment_reduce on a block")
+    block_rounds = _in_turns_rounds(lib_calls, SEGMENT_ROUNDS, SEGMENT_REPS)
+    del msgs, m32, dst_sent, lengths, lib_calls, out0
     lap("kernel-7 checks")
     fwd_ms = []
     with torch.no_grad():
@@ -1495,7 +1548,7 @@ def phase_gnn(smi: str, graph) -> int:
             fwd_ms.append((time.perf_counter() - t0) * 1e3)
 
     lap("forward timing")
-    # 3. the whole model at f32 on the card against a CPU copy
+    # 4. the whole model at f32 on the card against a CPU copy
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     small = block(GNN_CHECK_SEEDS)
     loss_fn = model_api.model_api(cfg32).loss
@@ -1518,7 +1571,7 @@ def phase_gnn(smi: str, graph) -> int:
           f"{errs} (limit {GNN_REL_TOL})")
     del grads_c, grads_h, params_h, small_h
 
-    # 4. the main path: train, checkpoint, reload, resume
+    # 5. the main path: train, checkpoint, reload, resume
     blocks = iter([first])
 
     def data():
@@ -1564,7 +1617,7 @@ def phase_gnn(smi: str, graph) -> int:
           f"{(GNN_STEPS + 1) * per_step} and nothing else")
 
     lap("train + resume")
-    # 5. one step profiled
+    # 6. one step profiled
     from torch.profiler import ProfilerActivity, profile
     step_fn, _ = train_loop.make_compressed_train_step(cfg, lc)
     comp = train_loop.init_state(resumed.params)
@@ -1625,18 +1678,25 @@ def phase_gnn(smi: str, graph) -> int:
           f"{bound_ms:.3f} ms ({by}; {100 * bound_ms / k7_ms:.1f}% of it); "
           "top: " + "; ".join(f"{k[:50]} {t:.3f} ms x{c}"
                               for k, t, c in top)
-          + f"; {smi}; phase {time.perf_counter() - t_phase:.1f}s (stages: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()) + ")",
-          flush=True)
+          + f"; {smi}; phase {stages.line()}", flush=True)
+    print(_rounds_line(
+        f"on [gnn]'s first block, its first aggregate (E {e_pad:,}, n "
+        f"{n_pad:,}, d {d}), in turns, {SEGMENT_ROUNDS} rounds of "
+        f"{SEGMENT_REPS} calls (bound {b_s * 1e3:.4f} ms, {by}; the library "
+        f"call's first n rows == the kernel's, max abs err {lib_err:.3e}, "
+        f"rtol = atol = {SEGMENT_TOL})", block_rounds,
+        {"kernel": "kernel", "library": "torch.segment_reduce given lengths"},
+        tag="[gnn]"), flush=True)
     return launches
 
 
-def phase_recsys() -> int:
+def phase_recsys() -> tuple[int, dict]:
     """The recsys retrieval step of BST at full width: its parameters made
     on the card, then RETRIEVAL_REQUESTS requests at ``retrieval_cand``,
     each timed on the host clock and its kernel under CUDA events, each
     answer checked against the same step through the plain version on the
-    card. Returns the kernel's launches in the requests."""
+    card. Returns the kernel's launches in the requests and ``{arch:
+    parameter tree}``, which ``[rank]`` reuses."""
     arch = get_arch(RETRIEVAL_ARCH)
     cfg, shape = arch.config, arch.shape("retrieval_cand")
     sync()
@@ -1715,7 +1775,7 @@ def phase_recsys() -> int:
           f"{launches} launches, one per request; every answer's ids equal "
           "the plain path's, its scores within rtol 1e-5", flush=True)
     _profile_request(step, params, batches[0])
-    return launches
+    return launches, {RETRIEVAL_ARCH: params}
 
 
 def _profile_request(step, params, batch) -> None:
@@ -1740,6 +1800,198 @@ def _profile_request(step, params, batch) -> None:
           f"distance_matrix kernel {kernel_ms:.4f} ms of them; top: "
           + "; ".join(f"{k[:60]} {t:.4f} ms x{c}" for k, t, c in top),
           flush=True)
+
+
+def _rank_model(arch_id: str, reuse: dict, smi: str) -> dict:
+    """One ranking model at full CONFIG on the card (its tree popped from
+    ``reuse``, so that this frame holds the only reference and the first
+    train step frees it; else made from seed 0): RANK_REQUESTS serve
+    requests at serve_p99 and one at serve_bulk through
+    ``make_serve_step`` (each answer finite, shape [B]; the serve step ==
+    ``recsys_forward`` bit for bit on one batch); logits, loss and every
+    gradient leaf against a CPU copy on RANK_CHECK_ROWS rows; RANK_STEPS
+    AdamW steps through ``make_train_step`` at RANK_TRAIN_ROWS rows, then
+    one more profiled. Prints four lines; returns the phase's numbers for
+    its summary."""
+    lap = (stages := Stages()).lap
+
+    arch = get_arch(arch_id)
+    cfg = arch.config
+    params = reuse.pop(arch_id, None)
+    reused = params is not None
+    if not reused:
+        params = model_api.model_api(cfg).init(
+            torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    nbytes = tree_bytes(params)
+    gen = torch.Generator(device="cuda").manual_seed(200)
+    p99, bulk = arch.shape("serve_p99"), arch.shape("serve_bulk")
+    rows = RANK_TRAIN_ROWS[arch_id]
+    train_shape = dataclasses.replace(arch.shape("train_batch"),
+                                      params={"batch": rows})
+    reqs = [model_api.make_batch(cfg, p99, gen, "cuda")
+            for _ in range(RANK_REQUESTS)]
+    train = [model_api.make_batch(cfg, train_shape, gen, "cuda")
+             for _ in range(RANK_STEPS)]
+    lap("init+batches")
+
+    # 1. serve: the step == the forward bit for bit, then timed requests
+    serve = model_api.make_serve_step(cfg)
+    first = serve(params, reqs[0])
+    check(torch.equal(first, recsys.recsys_forward(cfg, params, reqs[0])),
+          f"[rank] {arch_id}: make_serve_step differs from recsys_forward")
+    wall = []
+    for r, batch in enumerate(reqs):
+        sync()
+        t0 = time.perf_counter()
+        out = serve(params, batch)
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        check(tuple(out.shape) == (p99["batch"],)
+              and bool(torch.isfinite(out).all()),
+              f"[rank] {arch_id}: request {r} answered {tuple(out.shape)}, "
+              f"finite {bool(torch.isfinite(out).all())}")
+    bulk_batch = model_api.make_batch(cfg, bulk, gen, "cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    out = serve(params, bulk_batch)
+    sync()
+    bulk_ms = (time.perf_counter() - t0) * 1e3
+    bulk_peak = torch.cuda.max_memory_allocated()
+    check(tuple(out.shape) == (bulk["batch"],)
+          and bool(torch.isfinite(out).all()),
+          f"[rank] {arch_id}: the serve_bulk request answered "
+          f"{tuple(out.shape)}")
+    del bulk_batch, out
+    torch.cuda.empty_cache()
+    lap("serve")
+
+    # 2. the card against a CPU copy: logits, loss, every gradient leaf
+    small = {k: v[:RANK_CHECK_ROWS] for k, v in train[0].items()}
+    loss_fn = model_api.model_api(cfg).loss
+    logits_c = recsys.recsys_forward(cfg, params, small).detach()
+    loss_c, _, grads_c = model_api.value_and_grad(loss_fn, params, small)
+    lap("check, card")
+    params_h, small_h = _to_cpu(params), _to_cpu(small)
+    logits_h = recsys.recsys_forward(cfg, params_h, small_h).detach()
+    loss_h, _, grads_h = model_api.value_and_grad(loss_fn, params_h, small_h)
+    del params_h
+    lap("check, CPU copy")
+    for what, got, want in (("logits", logits_c, logits_h),
+                            ("loss", loss_c, loss_h)):
+        check(torch.allclose(got.cpu(), want, rtol=RANK_RTOL,
+                             atol=RANK_ATOL),
+              f"[rank] {arch_id}: {what} on the card vs its CPU copy: max "
+              f"abs err {float((got.cpu() - want).abs().max())}")
+    errs = {}
+    for (path, g), h in zip(tree_flatten_with_path(grads_c)[0],
+                            tree_leaves(grads_h)):
+        h = h.to("cuda")
+        errs[".".join(path)] = float((g - h).abs().max()
+                                     / h.abs().max().clamp(min=1e-30))
+    del grads_c, grads_h, h
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= GNN_REL_TOL,
+          f"[rank] {arch_id}: gradients on the card vs its CPU copy: "
+          f"relative errors {errs} (limit {GNN_REL_TOL})")
+    logit_err = float((logits_c.cpu() - logits_h).abs().max())
+    loss_err = float((loss_c.cpu() - loss_h).abs())
+    torch.cuda.empty_cache()
+    lap("check, compare")
+
+    # 3. train: RANK_STEPS AdamW steps, then one profiled
+    step, opt = model_api.make_train_step(cfg)
+    opt_state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for batch in train:
+        sync()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"[rank] {arch_id}: losses {losses}")
+    lap("train")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        params, opt_state, _ = step(params, opt_state, train[0])
+        sync()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    del params, opt_state, train
+    torch.cuda.empty_cache()
+    ops_ms = device_ops(prof.key_averages())
+    busy = sum(t for _, t, _ in ops_ms)
+    check(busy > 0, f"[rank] {arch_id}: the profiler saw no device time")
+    top = sorted(ops_ms, key=lambda o: -o[1])[:5]
+    lap("profiled step")
+
+    cut = ("" if rows == arch.shape("train_batch")["batch"] else
+           f", cut from train_batch's {arch.shape('train_batch')['batch']:,}"
+           f" (the scans' saved activations)")
+    print(f"[rank] {arch_id} CONFIG ({arch.source}; embed {cfg.embed_dim}, "
+          f"seq {cfg.seq_len}, MLP {'-'.join(map(str, cfg.mlp_dims))}"
+          + (f", GRU {cfg.gru_dim}" if cfg.gru_dim else "")
+          + (f", {cfg.n_blocks} block, {cfg.n_heads} heads"
+             if cfg.n_blocks else "")
+          + f"): {n_params:,} parameters, {nbytes:,} B, "
+          f"{cfg.total_rows():,} embedding rows, "
+          f"{'reused from [recsys]' if reused else 'made on the card'}; "
+          f"serve: {RANK_REQUESTS} requests at {p99.name} ({p99['batch']} "
+          f"rows) wall ms p50 {np.median(wall):.3f}, p99 "
+          f"{np.percentile(wall, 99):.3f} (min {min(wall):.3f}, max "
+          f"{max(wall):.3f}); one at {bulk.name} ({bulk['batch']:,} rows) "
+          f"{bulk_ms:.1f} ms, peak memory {bulk_peak:,} B; every answer "
+          f"finite and [B]; make_serve_step == recsys_forward bit for bit",
+          flush=True)
+    print(f"[rank] {arch_id} train: {RANK_STEPS} AdamW steps through "
+          f"make_train_step at {rows:,} rows{cut}: losses "
+          + ", ".join(f"{x:.5f}" for x in losses)
+          + "; step ms " + ", ".join(f"{t:.1f}" for t in step_ms)
+          + f" (median after the first {np.median(step_ms[1:]):.2f}); peak "
+          f"memory {peak:,} B", flush=True)
+    print(f"[rank] {arch_id} checks: card vs its CPU copy on "
+          f"{RANK_CHECK_ROWS} rows: logits max abs err {logit_err:.3e}, "
+          f"loss {loss_err:.3e} (rtol {RANK_RTOL}, atol {RANK_ATOL}); "
+          f"gradients at most {errs[worst]:.3e} of a leaf's largest value "
+          f"({worst}; median {np.median(list(errs.values())):.3e} over "
+          f"{len(errs)} leaves; limit {GNN_REL_TOL})", flush=True)
+    print(f"[rank] {arch_id} one step profiled: wall {prof_ms:.2f} ms, "
+          f"device busy {busy:.3f} ms ({100 * busy / prof_ms:.1f}%), "
+          f"{sum(c for _, _, c in ops_ms)} device ops; top: "
+          + "; ".join(f"{k[:50]} {t:.3f} ms x{c}" for k, t, c in top)
+          + f"; {smi}; {stages.line()}", flush=True)
+    return {"serve_p50": float(np.median(wall)),
+            "step_ms": float(np.median(step_ms[1:])), "peak": peak}
+
+
+def phase_rank(smi: str, reuse: dict) -> None:
+    """The recsys ranking path (``recsys_forward`` / ``recsys_loss``
+    through the serve and train steps) of each of RANK_ARCHS at full
+    CONFIG, one model at a time on the card; ``reuse`` holds trees made by
+    an earlier phase, each popped by its model. The
+    launch counters are set to 0 before and read after: the path calls no
+    kernel of the port, so every count stays 0."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    done = {}
+    for arch_id in RANK_ARCHS:
+        done[arch_id] = _rank_model(arch_id, reuse, smi)
+        torch.cuda.empty_cache()
+    launched = launch_counts()
+    check(all(v == 0 for v in launched.values()),
+          f"[rank] the ranking path launched a kernel: {launched}")
+    print(f"[rank] phase {time.perf_counter() - t_phase:.1f}s; serve p50 "
+          + ", ".join(f"{a} {d['serve_p50']:.3f} ms" for a, d in done.items())
+          + "; step " + ", ".join(f"{a} {d['step_ms']:.1f} ms"
+                                  for a, d in done.items())
+          + "; no kernel of the port launched (every count 0)", flush=True)
 
 
 def _timed_call(fn, *args) -> tuple:
@@ -3077,7 +3329,12 @@ def main() -> int:
               f"worker thread, {seconds['data']:.1f}s waited for", flush=True)
         graph = timed("gnn_graph", gnn_data.result)
         # the recsys retrieval path, its counts read just after its requests
-        kernels["distance_matrix"]["launches"] = timed("recsys", phase_recsys)
+        launches, ranked = timed("recsys", phase_recsys)
+        kernels["distance_matrix"]["launches"] = launches
+        torch.cuda.empty_cache()
+        # the recsys ranking path: no kernel of the port, all counts stay 0
+        timed("rank", phase_rank, smi, ranked)
+        del ranked
         torch.cuda.empty_cache()
         # the GNN training path, its counts read just after its steps
         gnn_launches = timed("gnn", phase_gnn, smi, graph)

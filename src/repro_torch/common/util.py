@@ -66,6 +66,31 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(type(x), "_fields")
 
 
+# The walkers are module-level functions given their accumulator: a nested
+# function that calls itself is a reference cycle, which would hold every
+# leaf it saw (a model's parameters, its optimizer state) until the
+# garbage collector's next pass.
+
+
+def _walk(node, path: tuple[str, ...], leaves: list) -> TreeDef:
+    if node is None:
+        return _NONE
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return TreeDef("dict", keys, tuple(
+            _walk(node[k], (*path, str(k)), leaves) for k in keys))
+    if _is_namedtuple(node):
+        return TreeDef("namedtuple", type(node), tuple(
+            _walk(getattr(node, f), (*path, f".{f}"), leaves)
+            for f in node._fields))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return TreeDef(kind, None, tuple(
+            _walk(v, (*path, str(i)), leaves) for i, v in enumerate(node)))
+    leaves.append((path, node))
+    return _LEAF
+
+
 def tree_flatten_with_path(tree: Any
                            ) -> tuple[list[tuple[tuple[str, ...], Any]],
                                       TreeDef]:
@@ -73,26 +98,8 @@ def tree_flatten_with_path(tree: Any
     tuple of strings), in the reference's order, and the structure that
     :func:`tree_unflatten` rebuilds from the leaves."""
     leaves: list[tuple[tuple[str, ...], Any]] = []
-
-    def walk(node, path: tuple[str, ...]) -> TreeDef:
-        if node is None:
-            return _NONE
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return TreeDef("dict", keys, tuple(
-                walk(node[k], (*path, str(k))) for k in keys))
-        if _is_namedtuple(node):
-            return TreeDef("namedtuple", type(node), tuple(
-                walk(getattr(node, f), (*path, f".{f}"))
-                for f in node._fields))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return TreeDef(kind, None, tuple(
-                walk(v, (*path, str(i))) for i, v in enumerate(node)))
-        leaves.append((path, node))
-        return _LEAF
-
-    return leaves, walk(tree, ())
+    treedef = _walk(tree, (), leaves)
+    return leaves, treedef
 
 
 def tree_leaves(tree: Any) -> list:
@@ -103,26 +110,26 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
     """The tree of ``treedef`` with ``leaves`` (in flatten order) put
     back; raises if their number differs from the tree's."""
     it = iter(leaves)
-
-    def build(td: TreeDef):
-        if td.kind == "leaf":
-            try:
-                return next(it)
-            except StopIteration:
-                raise ValueError("fewer leaves than the tree has") from None
-        if td.kind == "none":
-            return None
-        kids = [build(c) for c in td.children]
-        if td.kind == "dict":
-            return dict(zip(td.meta, kids))
-        if td.kind == "namedtuple":
-            return td.meta(*kids)
-        return kids if td.kind == "list" else tuple(kids)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _END) is not _END:
         raise ValueError("more leaves than the tree has")
     return out
+
+
+def _build(td: TreeDef, it):
+    if td.kind == "leaf":
+        try:
+            return next(it)
+        except StopIteration:
+            raise ValueError("fewer leaves than the tree has") from None
+    if td.kind == "none":
+        return None
+    kids = [_build(c, it) for c in td.children]
+    if td.kind == "dict":
+        return dict(zip(td.meta, kids))
+    if td.kind == "namedtuple":
+        return td.meta(*kids)
+    return kids if td.kind == "list" else tuple(kids)
 
 
 def leaf_key(path: tuple[str, ...]) -> str:

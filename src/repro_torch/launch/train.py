@@ -2,13 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch meshgraphnet \
         --smoke --steps 20 --device cpu [--compress int8]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dien \
+        --smoke --steps 20 --device cpu
 
 Drives the fault-tolerant loop (checkpoint and resume, the straggler
 monitor, optional gradient compression) on ``--device`` (default: the CUDA
 card; on a host without one pass ``--device cpu``). Data is the synthetic
-pipeline: for a GNN, blocks sampled by ``NeighborSampler`` (fanouts 6 and
-4) from a 32 x 32 mesh graph, the reference's batches, as tensors on the
-device. The LM and recsys families wait for their slices of the port.
+pipeline, the reference's batches as tensors on the device: for a GNN,
+blocks sampled by ``NeighborSampler`` (fanouts 6 and 4) from a 32 x 32
+mesh graph; for a recsys arch (``bst``, ``dien``, ``deepfm``,
+``wide-deep``), ``--batch`` rows of dense features, uniform sparse ids,
+0/1 labels and, for DIEN and BST, behavior sequences and target items. The
+LM family waits for its slice of the port.
 """
 
 from __future__ import annotations
@@ -41,9 +46,25 @@ def data_iterator(cfg, batch: int, seq: int, seed: int = 0,
                                     d_edge=cfg.in_edge_dim)
             yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
     if isinstance(cfg, RecsysConfig):
-        raise NotImplementedError(
-            "recsys training waits for the ranking slice of the port "
-            "(recsys_forward / recsys_loss)")
+        device = resolve_device(device)
+        rng = np.random.default_rng(seed)
+        hot = max(cfg.multi_hot_sizes) if cfg.multi_hot_sizes else 1
+        while True:
+            b = {"dense": rng.normal(size=(batch, cfg.n_dense)
+                                     ).astype(np.float32),
+                 "sparse": np.stack(
+                     [rng.integers(0, cfg.field_vocabs[f], size=(batch, hot))
+                      for f in range(cfg.n_sparse)], axis=1
+                     ).astype(np.int32),
+                 "labels": rng.integers(0, 2, size=batch
+                                        ).astype(np.float32)}
+            if cfg.seq_len:
+                b["seq"] = rng.integers(0, cfg.item_vocab,
+                                        size=(batch, cfg.seq_len)
+                                        ).astype(np.int32)
+                b["target_item"] = rng.integers(0, cfg.item_vocab,
+                                                size=batch).astype(np.int32)
+            yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
     raise NotImplementedError(
         f"training {type(cfg).__name__} waits for the LM slice of the port "
         f"(transformer.py, LMConfig)")

@@ -4,13 +4,13 @@ and recsys families.
     api = model_api(arch.config)
     params = api.init(generator, device)          (device "meta": shapes only)
     step, opt = make_train_step(cfg)              (params, opt, batch) -> ...
+    serve = make_serve_step(cfg)                  (params, batch) -> logits
     specs = input_specs(cfg, shape)               (shape, dtype) per input
     batch = make_batch(cfg, shape, generator, device)       (recsys)
 
-A step takes and returns plain trees of tensors. The recsys loss and serve
-step (``recsys_forward``, DIEN's AUGRU scan, BST's blocks) wait for the
-ranking slice; the LM family (``transformer.py``, ``LMConfig``) for its
-own; both raise, naming it.
+A step takes and returns plain trees of tensors. The LM family
+(``transformer.py``, ``LMConfig``) waits for its slice of the port; its
+entry points raise, naming it.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from repro_torch.config.base import GNNConfig, RecsysConfig, ShapeSpec
 from repro_torch.models import gnn, recsys
 from repro_torch.training.optimizer import make_optimizer
 
-_RANKING = "the ranking slice of the port (recsys_forward / recsys_loss)"
 _LM = "the LM slice of the port (transformer.py, LMConfig)"
 
 
@@ -37,12 +36,6 @@ class ModelAPI(NamedTuple):
     family: str
 
 
-def _waits(what: str, slice_name: str):
-    def raise_(*args, **kwargs):
-        raise NotImplementedError(f"{what} waits for {slice_name}")
-    return raise_
-
-
 def model_api(cfg) -> ModelAPI:
     if isinstance(cfg, GNNConfig):
         return ModelAPI(init=functools.partial(gnn.init_gnn, cfg),
@@ -50,7 +43,7 @@ def model_api(cfg) -> ModelAPI:
                         family="gnn")
     if isinstance(cfg, RecsysConfig):
         return ModelAPI(init=functools.partial(recsys.init_recsys, cfg),
-                        loss=_waits("the recsys loss", _RANKING),
+                        loss=functools.partial(recsys.recsys_loss, cfg),
                         family="recsys")
     raise TypeError(f"the port has no model API for {type(cfg).__name__} "
                     f"yet: it waits for {_LM}")
@@ -106,7 +99,12 @@ def make_prefill_step(cfg):
 
 
 def make_serve_step(cfg: RecsysConfig):
-    raise NotImplementedError(f"the recsys serve step waits for {_RANKING}")
+    """(params, batch) -> CTR logits f32[B]: ``recsys_forward`` without
+    autograd."""
+    @torch.no_grad()
+    def serve(params, batch):
+        return recsys.recsys_forward(cfg, params, batch)
+    return serve
 
 
 def make_retrieval_step(cfg: RecsysConfig, k: int = 100):
@@ -155,7 +153,8 @@ def resolve_config(cfg, shape: ShapeSpec):
 
 def input_specs(cfg, shape: ShapeSpec) -> dict[str, tuple[tuple, torch.dtype]]:
     """Step inputs of one (arch, shape) cell as ``(shape, dtype)`` pairs:
-    the ``graph_*`` kinds, and ``recsys_serve`` / ``recsys_retrieval``."""
+    the ``graph_*`` kinds, and ``recsys_train`` / ``recsys_serve`` /
+    ``recsys_retrieval``."""
     if isinstance(cfg, GNNConfig):
         n, e = _gnn_block_sizes(shape)
         d_feat = shape.get("d_feat", cfg.in_node_dim)
@@ -168,8 +167,8 @@ def input_specs(cfg, shape: ShapeSpec) -> dict[str, tuple[tuple, torch.dtype]]:
     if not isinstance(cfg, RecsysConfig):
         raise TypeError(f"the port has no input specs for "
                         f"{type(cfg).__name__} yet: it waits for {_LM}")
-    if shape.kind not in ("recsys_serve", "recsys_retrieval"):
-        raise ValueError(f"shape kind {shape.kind!r} waits for {_RANKING}")
+    if shape.kind not in ("recsys_train", "recsys_serve", "recsys_retrieval"):
+        raise ValueError(f"a recsys config has no shape kind {shape.kind!r}")
     hot = max(cfg.multi_hot_sizes) if cfg.multi_hot_sizes else 1
     b = shape.get("batch", 1)
     specs = {"dense": ((b, cfg.n_dense), torch.float32),
@@ -177,6 +176,8 @@ def input_specs(cfg, shape: ShapeSpec) -> dict[str, tuple[tuple, torch.dtype]]:
     if cfg.seq_len:
         specs["seq"] = ((b, cfg.seq_len), torch.int32)
         specs["target_item"] = ((b,), torch.int32)
+    if shape.kind == "recsys_train":
+        specs["labels"] = ((b,), torch.float32)
     if shape.kind == "recsys_retrieval":
         specs["candidates"] = ((shape["n_candidates"],), torch.int32)
     return specs
@@ -200,8 +201,9 @@ def make_batch(cfg: RecsysConfig, shape: ShapeSpec, gen: torch.Generator,
     """A random batch to :func:`input_specs`, drawn from ``gen`` on
     ``device``: dense features from N(0, 1); each field's ids uniform over
     its vocabulary, positions past the field's bag size -1; sequence and
-    target items over the item table; candidates over the table that
-    ``retrieval_scores`` scores (the item table, else field 0's)."""
+    target items over the item table; labels 0 or 1 with even odds;
+    candidates over the table that ``retrieval_scores`` scores (the item
+    table, else field 0's)."""
     specs = input_specs(cfg, shape)
     b, n_fields, hot = specs["sparse"][0]
     sizes = cfg.multi_hot_sizes or (1,) * n_fields
@@ -222,6 +224,10 @@ def make_batch(cfg: RecsysConfig, shape: ShapeSpec, gen: torch.Generator,
         batch["target_item"] = torch.randint(
             0, cfg.item_vocab, specs["target_item"][0], generator=gen,
             device=device, dtype=torch.int32)
+    if "labels" in specs:
+        batch["labels"] = torch.randint(
+            0, 2, specs["labels"][0], generator=gen, device=device,
+            dtype=torch.int32).to(torch.float32)
     if "candidates" in specs:
         rows = cfg.item_vocab if cfg.seq_len else cfg.field_vocabs[0]
         batch["candidates"] = torch.randint(

@@ -52,8 +52,7 @@ def _mlp(p, x, eps=1e-5):
     n = len(p["w"])
     for i in range(n):
         # JAX's promotion: bf16 activations against f32 weights give f32
-        dt = torch.promote_types(x.dtype, p["w"][i].dtype)
-        x = x.to(dt) @ p["w"][i].to(dt) + p["b"][i]
+        x = L.matmul(x, p["w"][i]) + p["b"][i]
         if i < n - 1:
             x = torch.relu(x)
     if "ln" in p:

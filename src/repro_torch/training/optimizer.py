@@ -141,21 +141,20 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
     return Optimizer(init=init, update=update, name="adafactor")
 
 
-def _subtrees(tree, like) -> list:
+def _subtrees(tree, like, out: list | None = None) -> list:
     """The subtrees of ``tree`` that sit where ``like`` has leaves, in
-    ``like``'s leaf order (``flatten_up_to``)."""
-    out = []
-
-    def walk(node, lk):
-        if isinstance(lk, dict):
-            for k in sorted(lk):
-                walk(node[k], lk[k])
-        elif isinstance(lk, (list, tuple)):
-            for a, b in zip(node, lk):
-                walk(a, b)
-        else:
-            out.append(node)
-    walk(tree, like)
+    ``like``'s leaf order (``flatten_up_to``). A module-level recursion, so
+    that no reference cycle holds the state until the garbage collector's
+    next pass (``common.util``'s walkers say why)."""
+    out = [] if out is None else out
+    if isinstance(like, dict):
+        for k in sorted(like):
+            _subtrees(tree[k], like[k], out)
+    elif isinstance(like, (list, tuple)):
+        for a, b in zip(tree, like):
+            _subtrees(a, b, out)
+    else:
+        out.append(tree)
     return out
 
 

@@ -117,6 +117,28 @@ def test_tree_walker_keys_order_and_roundtrip(index):
         util.tree_unflatten(treedef, [x for _, x in leaves] + [0])
 
 
+def test_tree_walker_holds_no_leaf_after_it_returns():
+    """Flattening and unflattening leave no reference cycle behind: with
+    the garbage collector off, a tree's leaves are freed as soon as the
+    tree and the walker's results are dropped (a self-calling nested
+    walker would keep them until the collector's next pass)."""
+    import gc
+    import weakref
+
+    tree = {"a": torch.zeros(3), "b": (torch.ones(2), [torch.zeros(1)]),
+            "c": None}
+    refs = [weakref.ref(t) for t in util.tree_leaves(tree)]
+    gc.disable()
+    try:
+        paths, treedef = util.tree_flatten_with_path(tree)
+        back = util.tree_unflatten(treedef, [leaf for _, leaf in paths])
+        assert util.tree_leaves(back)[0] is tree["a"]
+        del tree, paths, back
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 def test_assert_no_nans_names_the_leaf_as_the_reference_flags_it():
     tree = {"a": torch.zeros(3), "b": [torch.tensor([1.0, float("nan")])],
             "i": torch.arange(3)}

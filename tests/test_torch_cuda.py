@@ -834,3 +834,42 @@ def test_gnn_smoke_forward_and_step_on_the_card_match_the_cpu_copy(cuda):
     remat = dataclasses.replace(cfg, remat=True, compute_dtype="bfloat16")
     loss, _, _ = api.value_and_grad(api.model_api(remat).loss, pc, bc)
     assert bool(torch.isfinite(loss))
+
+
+RANKING = ["wide-deep", "deepfm", "dien", "bst"]
+
+
+@pytest.mark.parametrize("arch_id", RANKING)
+def test_ranking_smoke_forward_loss_and_grads_on_the_card_match_the_cpu_copy(
+        cuda, arch_id):
+    """Each recsys SMOKE model: logits and loss on the card equal a CPU
+    copy's at rtol 1e-4 / atol 1e-5 (TF32 off), every gradient leaf within
+    5e-3 of that leaf's largest magnitude (the card's ``table[ids]``
+    backward scatter-adds atomically, in another order), the serve step
+    equals the forward bit for bit, and no kernel of the port launches
+    (the ranking path has none)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch_id).smoke_config
+    params = recsys.init_recsys(cfg, torch.Generator().manual_seed(0), "cpu")
+    shape = ShapeSpec("t", "recsys_train", {"batch": 256})
+    batch = api.make_batch(cfg, shape, torch.Generator().manual_seed(1),
+                           "cpu")
+    loss_fn = api.model_api(cfg).loss
+    want_logits = recsys.recsys_forward(cfg, params, batch)
+    want_loss, _, want_grads = api.value_and_grad(loss_fn, params, batch)
+    pc, bc = _to(params, cuda), {k: v.to(cuda) for k, v in batch.items()}
+    before = (distance_matrix.LAUNCHES, segment_sum.LAUNCHES,
+              gather_distance.LAUNCHES, quantized.LAUNCHES)
+    logits = recsys.recsys_forward(cfg, pc, bc)
+    loss, _, grads = api.value_and_grad(loss_fn, pc, bc)
+    served = api.make_serve_step(cfg)(pc, bc)
+    assert (distance_matrix.LAUNCHES, segment_sum.LAUNCHES,
+            gather_distance.LAUNCHES, quantized.LAUNCHES) == before
+    assert torch.equal(served, logits)
+    torch.testing.assert_close(logits.cpu(), want_logits, rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-4, atol=1e-5)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want_grads)):
+        assert g.device.type == "cuda"
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 5e-3 * float(w.abs().max().clamp(min=1e-30))
