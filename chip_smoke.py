@@ -23,7 +23,13 @@ serve_p99 requests and one serve_bulk request through the serve step,
 which equals ``recsys_forward`` bit for bit; logits, loss and every
 gradient against a CPU copy; 3 AdamW steps through ``make_train_step``,
 BST at train_batch's 65,536 rows and DIEN at 32,768, one step profiled; no
-kernel of the port launched, since the ranking path has none), trains
+kernel of the port launched, since the ranking path has none), serves
+gemma2-9b's full config (42 layers, bf16, 9.24 B parameters) through
+``greedy_generate`` (``[lm]``: 8 prompts of 512 tokens and 2 of 8,192,
+32 new tokens each; the last decode step against a prefill of the whole
+sequence, a decode step under CUDA's sync debug mode, one profiled; the
+full-width model cut to 2 layers in f32 against its CPU copy; no kernel
+of the port launched, since the LM path has none), trains
 MeshGraphNet's full
 config on Reddit-regime minibatch blocks sampled from a power-law graph
 through the port's checkpointed training loop, kernel 7 aggregating every
@@ -134,6 +140,8 @@ from repro_torch.kernels import (_build, distance_matrix,  # noqa: E402
                                  quantized_gather_distance, ref, segment_sum)
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import gnn, recsys  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serving import greedy_generate  # noqa: E402
 from repro_torch.training import loop as train_loop  # noqa: E402
 
 # GIST1M (TEXMEX; the paper's Table 2): 1M vectors of width 960, l2
@@ -310,6 +318,27 @@ RANK_CHECK_ROWS = 256       # rows of the card-vs-CPU-copy check
 # other summation orders); each gradient leaf within GNN_REL_TOL of its
 # largest value (the card's table[ids] backward scatter-adds atomically)
 RANK_RTOL, RANK_ATOL = 1e-4, 1e-5
+# [lm]: gemma2-9b's full CONFIG (42 layers, bf16) served through
+# greedy_generate: (B, prompt tokens) of each request shape; (a) takes
+# prefill's one-pass attention, (b) its chunked_mha (from 8192 tokens),
+# where every even layer's 4096-token window bites
+LM_ARCH = "gemma2-9b"
+LM_REQUESTS = {"a": (8, 512), "b": (2, 8192)}
+LM_NEW = 32                 # greedy tokens a request
+# decode against prefill at full depth: the last decode step's logits
+# (bf16 throughout; the final soft cap keeps them within +-30) against a
+# prefill of the prompt and all 32 new tokens. A wrong position, cache
+# slot or window is O(1)
+LM_DECODE_TOL = 0.5
+# the card against its CPU copy, f32 and TF32 off: full width and the
+# 256,000-token vocabulary, depth and window cut only for the CPU copy's
+# time (2 layers, a window of 64 that bites inside 128-token prompts)
+LM_CHECK = dict(n_layers=2, local_window=64, param_dtype="float32",
+                compute_dtype="float32")
+LM_CHECK_SHAPE = (2, 128)
+LM_CHECK_NEW = 4
+LM_CHECK_TOL = dict(rtol=1e-4, atol=1e-4)
+LM_MEM_SLACK = 64 << 20     # bytes the phase may leave allocated
 F32_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
 INT8_SOURCE = "src/repro_torch/kernels/csrc/quantized_gather_distance.cu"
 TPU_KERNELS = "src/repro/kernels/gather_distance.py"
@@ -1994,6 +2023,201 @@ def phase_rank(smi: str, reuse: dict) -> None:
           + "; no kernel of the port launched (every count 0)", flush=True)
 
 
+def _lm_request(cfg, params, name: str, b: int, s: int, smi: str) -> dict:
+    """One request shape of ``[lm]``: a warm-up, then ``greedy_generate``
+    of LM_NEW tokens timed on the stream (CUDA events at its steps), then
+    check 1 (the last decode step against a prefill of the prompt and the
+    new tokens), a decode step under CUDA's sync debug mode "error" (it
+    reads nothing back to the host) and one decode step profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lap = (stages := Stages()).lap
+    prompt = np.random.default_rng(300 + b).integers(
+        0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+    max_len = s + LM_NEW
+    greedy_generate(cfg, params, prompt, 2, max_len=max_len)     # warm-up
+    lap("warm-up")
+    events = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    sync()
+    t0 = time.perf_counter()
+    tokens, last = greedy_generate(cfg, params, prompt, LM_NEW,
+                                   return_logits=True, on_step=mark)
+    sync()
+    wall_s = time.perf_counter() - t0
+    prefill_ms = events[0].elapsed_time(events[1])
+    decode_ms = [events[i].elapsed_time(events[i + 1])
+                 for i in range(1, len(events) - 1)]
+    check(tokens.shape == (b, LM_NEW) and len(decode_ms) == LM_NEW,
+          f"[lm] ({name}) tokens {tokens.shape}, {len(decode_ms)} steps")
+    check(bool(torch.isfinite(last).all()),
+          f"[lm] ({name}) non-finite decode logits")
+    lap("generate")
+
+    # check 1: a prefill of the prompt and every new token, whose last
+    # position is the last decode step's (which fed the 32nd token)
+    full = torch.from_numpy(np.concatenate([prompt, tokens], axis=1)
+                            ).to("cuda")
+    with torch.no_grad():
+        cache, ref_logits = transformer.prefill(cfg, params, full,
+                                                max_len=s + LM_NEW + 2)
+    check(bool(torch.isfinite(ref_logits).all()),
+          f"[lm] ({name}) non-finite prefill logits")
+    diff = (last - ref_logits).abs()
+    max_d = float(diff.max())
+    top2 = torch.topk(ref_logits, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * diff.max(dim=-1).values
+    same = last.argmax(-1) == ref_logits.argmax(-1)
+    check(max_d <= LM_DECODE_TOL and bool(same[decided].all()),
+          f"[lm] ({name}) decode vs prefill: max |d| {max_d} (limit "
+          f"{LM_DECODE_TOL}), argmax equal {same.tolist()} where decided "
+          f"{decided.tolist()}")
+    lap("check prefill")
+
+    # no host read in a decode step; then one decode step profiled
+    tok = ref_logits.argmax(-1).to(torch.int32)
+    with torch.no_grad():
+        sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cache, _ = transformer.decode_step(cfg, params, cache, tok)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cache, _ = transformer.decode_step(cfg, params, cache, tok)
+            sync()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    del cache, full, ref_logits, last
+    ops_ms = device_ops(prof.key_averages())
+    busy = sum(t for _, t, _ in ops_ms)
+    check(busy > 0, f"[lm] ({name}) the profiler saw no device time")
+    top = sorted(ops_ms, key=lambda o: -o[1])[:4]
+    lap("decode checks, profile")
+    # a decode step reads every parameter (the tied head reads the whole
+    # embedding) and the whole cache of max_len positions, K and V
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    cache_bytes = (2 * cfg.n_layers * b * max_len * cfg.n_kv_heads
+                   * cfg.head_dim * torch.finfo(getattr(
+                       torch, cfg.compute_dtype)).bits // 8)
+    step_bytes = tree_bytes(params) + cache_bytes
+    bound, by = bound_s(step_bytes, 0.0, 2.0 * n_params * b,
+                        TARGET.peak_bf16_flops)
+    p50, p99 = np.percentile(decode_ms, 50), np.percentile(decode_ms, 99)
+    print(f"[lm] ({name}) B = {b}, {s:,}-token prompts, {LM_NEW} new "
+          f"tokens, {'chunked_mha' if s >= 8192 else 'one-pass mha'} "
+          f"prefill: greedy_generate wall {wall_s * 1e3:.1f} ms; prefill "
+          f"{prefill_ms:.2f} ms; decode a token p50 {p50:.3f} / p99 "
+          f"{p99:.3f} ms (min {min(decode_ms):.3f}, max {max(decode_ms):.3f})"
+          f" vs bound {bound * 1e3:.3f} ms ({by}: {step_bytes:,} B of "
+          f"parameters and a {max_len:,}-position cache at "
+          f"{TARGET.hbm_bandwidth:.3e} B/s); decode vs prefill of the "
+          f"{s + LM_NEW:,} tokens: max |d| {max_d:.4f} (limit "
+          f"{LM_DECODE_TOL}), argmax equal in {int(same.sum())} of {b} rows"
+          f" ({int(decided.sum())} decided); no host sync in a decode step; "
+          f"one decode step profiled: wall {prof_ms:.2f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / prof_ms:.1f}%), "
+          f"{sum(c for _, _, c in ops_ms)} device ops; top: "
+          + "; ".join(f"{k[:40]} {t:.3f} ms x{c}" for k, t, c in top)
+          + f"; {smi}; {stages.line()}", flush=True)
+    return {"prefill_ms": prefill_ms, "p50": p50, "p99": p99,
+            "bound_ms": bound * 1e3, "max_d": max_d}
+
+
+def phase_lm(smi: str) -> None:
+    """The LM serving path: gemma2-9b's full CONFIG (42 layers, bf16
+    parameters and compute, drawn on the card through ``model_api``)
+    serves LM_REQUESTS through ``greedy_generate`` (:func:`_lm_request`),
+    then check 2: the full-width model cut to 2 layers in f32 on the card
+    against its CPU copy. Check 3: no kernel of the port launches (the LM
+    path has none: the launch counters before and after are equal). Frees
+    the model and checks the allocator returns within LM_MEM_SLACK."""
+    t_phase = time.perf_counter()
+    lap = (stages := Stages()).lap
+    before = launch_counts()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    arch = get_arch(LM_ARCH)
+    cfg = arch.config
+    t0 = time.perf_counter()
+    params = model_api.model_api(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    nbytes = tree_bytes(params)
+    lap("init")
+    done = {}
+    for name, (b, s) in LM_REQUESTS.items():
+        done[name] = _lm_request(cfg, params, name, b, s, smi)
+        torch.cuda.empty_cache()
+        lap(f"request ({name})")
+    del params
+    torch.cuda.empty_cache()
+
+    # check 2: full width, cut depth, f32, the card against its CPU copy
+    small = dataclasses.replace(cfg, **LM_CHECK)
+    params = model_api.model_api(small).init(
+        torch.Generator(device="cuda").manual_seed(1), "cuda")
+    prompt = np.random.default_rng(301).integers(
+        0, cfg.vocab_size, size=LM_CHECK_SHAPE).astype(np.int32)
+    toks_c, logits_c = greedy_generate(small, params, prompt, LM_CHECK_NEW,
+                                       return_logits=True)
+    lap("check, card")
+    params_h = _to_cpu(params)
+    del params
+    toks_h, logits_h = greedy_generate(small, params_h, prompt, LM_CHECK_NEW,
+                                       return_logits=True)
+    del params_h
+    lap("check, CPU copy")
+    err = float((logits_c.cpu() - logits_h).abs().max())
+    check(np.array_equal(toks_c, toks_h)
+          and torch.allclose(logits_c.cpu(), logits_h, **LM_CHECK_TOL),
+          f"[lm] the card vs its CPU copy: tokens {toks_c.tolist()} vs "
+          f"{toks_h.tolist()}, logits max abs err {err}")
+    del logits_c, logits_h
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - mem0
+    check(left <= LM_MEM_SLACK,
+          f"[lm] {left:,} B still allocated after the phase")
+    launched = launch_counts()
+    check(launched == before,
+          f"[lm] the LM path launched a kernel: {before} -> {launched}")
+    flags = (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+             f"{torch.backends.cudnn.allow_tf32}, bf16 reduced-precision "
+             f"reduction "
+             f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    print(f"[lm] {LM_ARCH} CONFIG ({arch.source}; {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV, "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size:,}, window {cfg.local_window} on even layers, "
+          f"{cfg.param_dtype}): {n_params:,} parameters "
+          f"(LMConfig.n_params {cfg.n_params():,} leaves out the post "
+          f"norms), {nbytes:,} B, drawn on the card in {init_s:.2f} s; "
+          f"checks: the card vs its CPU copy (2 layers, window 64, f32, "
+          f"TF32 off; depth and window cut for the CPU copy's time) on "
+          f"{LM_CHECK_SHAPE[0]} x {LM_CHECK_SHAPE[1]} tokens, "
+          f"{LM_CHECK_NEW} new: tokens equal, logits max abs err "
+          f"{err:.3e} (rtol/atol {LM_CHECK_TOL['rtol']}); every logit "
+          f"finite; no kernel of the port launched (every count as "
+          f"before); peak memory {peak:,} B, {left:,} B left after; flags: "
+          f"{flags}; {smi}", flush=True)
+    print(f"[lm] phase {time.perf_counter() - t_phase:.1f}s; "
+          + "; ".join(f"({n}) prefill {d['prefill_ms']:.1f} ms, decode p50 "
+                      f"{d['p50']:.2f} / p99 {d['p99']:.2f} ms vs bound "
+                      f"{d['bound_ms']:.2f}" for n, d in done.items())
+          + f"; {stages.line()}", flush=True)
+
+
 def _timed_call(fn, *args) -> tuple:
     """(fn(*args), its wall seconds)."""
     t0 = time.perf_counter()
@@ -3336,6 +3560,8 @@ def main() -> int:
         timed("rank", phase_rank, smi, ranked)
         del ranked
         torch.cuda.empty_cache()
+        # the LM serving path: no kernel of the port, the counts unmoved
+        timed("lm", phase_lm, smi)
         # the GNN training path, its counts read just after its steps
         gnn_launches = timed("gnn", phase_gnn, smi, graph)
         kernels["csr_segment_sum"]["launches"] += gnn_launches

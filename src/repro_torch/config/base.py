@@ -1,10 +1,9 @@
-"""Typed configuration: shapes, the GNN and recsys model configs and the
-arch registry (port of ``repro.config.base``).
+"""Typed configuration: shapes, the LM, GNN and recsys model configs and
+the arch registry (port of ``repro.config.base``).
 
 Every architecture the port runs is a module in ``repro_torch.configs``
 that builds an :class:`ArchDef` (full-size config, its shape set and a
-reduced smoke config) and registers it under its id. The language-model
-configs (``LMConfig``, ``MoEConfig``) belong to a later slice of the port.
+reduced smoke config) and registers it under its id.
 """
 
 from __future__ import annotations
@@ -47,6 +46,83 @@ class ShapeSpec:
 
     def get(self, key: str, default: int | None = None):
         return self.params.get(key, default)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    arch_id: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    activation: str = "swiglu"          # "swiglu" | "geglu"
+    qkv_bias: bool = False               # qwen1.5
+    attn_pattern: str = "global"         # "global" | "local_global" (gemma2)
+    local_window: int = 4096             # sliding window for local layers
+    attn_logit_softcap: float = 0.0      # gemma2 (50.0); 0 disables
+    final_logit_softcap: float = 0.0     # gemma2 (30.0); 0 disables
+    post_norms: bool = False             # gemma2 sandwich norms
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    moe: Optional[MoEConfig] = None
+    norm_eps: float = 1e-6
+    embedding_scale: bool = True         # gemma-style sqrt(d_model) scaling
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    optimizer: str = "adafactor"
+
+    family: str = "lm"
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe is not None
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + per-layer + head)."""
+        d, h, kv, hd, ff, v, L = (self.d_model, self.n_heads, self.n_kv_heads,
+                                  self.head_dim, self.d_ff, self.vocab_size,
+                                  self.n_layers)
+        attn = d * h * hd + 2 * d * kv * hd + h * hd * d
+        if self.moe is None:
+            mlp = 3 * d * ff  # gated: up, gate, down
+        else:
+            e = self.moe
+            mlp = ((e.n_experts + e.n_shared_experts) * 3 * d * e.d_ff_expert
+                   + d * e.n_experts)
+        norms = 2 * d
+        emb = v * d if self.tie_embeddings else 2 * v * d
+        return emb + L * (attn + mlp + norms) + d
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared
+        experts)."""
+        if self.moe is None:
+            return self.n_params()
+        d, L = self.d_model, self.n_layers
+        e = self.moe
+        dense_like = dataclasses.replace(self, moe=None, d_ff=1)
+        base = dense_like.n_params() - L * 3 * d  # strip placeholder mlp
+        active_mlp = ((e.top_k + e.n_shared_experts) * 3 * d * e.d_ff_expert
+                      + d * e.n_experts)
+        return base + L * active_mlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +171,7 @@ class RecsysConfig:
         return sum(self.field_vocabs) + (self.item_vocab if self.seq_len else 0)
 
 
-AnyConfig = Any  # GNNConfig | RecsysConfig (LMConfig comes with its slice)
+AnyConfig = Any  # LMConfig | GNNConfig | RecsysConfig
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,16 +4,19 @@
         --smoke --steps 20 --device cpu [--compress int8]
     PYTHONPATH=src python -m repro_torch.launch.train --arch dien \
         --smoke --steps 20 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --smoke --steps 20 --batch 8 --seq 128 --device cpu
 
 Drives the fault-tolerant loop (checkpoint and resume, the straggler
 monitor, optional gradient compression) on ``--device`` (default: the CUDA
 card; on a host without one pass ``--device cpu``). Data is the synthetic
-pipeline, the reference's batches as tensors on the device: for a GNN,
+pipeline, the reference's batches as tensors on the device: for an LM,
+``--batch`` x ``--seq`` tokens drawn from a skewed (Dirichlet) unigram
+distribution over the vocabulary; for a GNN,
 blocks sampled by ``NeighborSampler`` (fanouts 6 and 4) from a 32 x 32
 mesh graph; for a recsys arch (``bst``, ``dien``, ``deepfm``,
 ``wide-deep``), ``--batch`` rows of dense features, uniform sparse ids,
-0/1 labels and, for DIEN and BST, behavior sequences and target items. The
-LM family waits for its slice of the port.
+0/1 labels and, for DIEN and BST, behavior sequences and target items.
 """
 
 from __future__ import annotations
@@ -30,7 +33,17 @@ def data_iterator(cfg, batch: int, seq: int, seed: int = 0,
     default); the numpy draws are the reference's, so the same seed gives
     the same batches."""
     from repro_torch.common.device import resolve_device
-    from repro_torch.config.base import GNNConfig, RecsysConfig
+    from repro_torch.config.base import GNNConfig, LMConfig, RecsysConfig
+    if isinstance(cfg, LMConfig):
+        device = resolve_device(device)
+        rng = np.random.default_rng(seed)
+        # a synthetic corpus with skewed unigram stats, so the loss has
+        # structure to learn
+        probs = rng.dirichlet(np.full(cfg.vocab_size, 0.05))
+        while True:
+            tokens = rng.choice(cfg.vocab_size, p=probs, size=(batch, seq))
+            yield {"tokens": torch.from_numpy(tokens.astype(np.int32)
+                                              ).to(device)}
     if isinstance(cfg, GNNConfig):
         device = resolve_device(device)
         from repro_torch.data.graph_sampler import (NeighborSampler,
@@ -65,9 +78,8 @@ def data_iterator(cfg, batch: int, seq: int, seed: int = 0,
                 b["target_item"] = rng.integers(0, cfg.item_vocab,
                                                 size=batch).astype(np.int32)
             yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
-    raise NotImplementedError(
-        f"training {type(cfg).__name__} waits for the LM slice of the port "
-        f"(transformer.py, LMConfig)")
+    raise TypeError(f"no synthetic data for {type(cfg).__name__}: the "
+                    f"families are LMConfig, GNNConfig and RecsysConfig")
 
 
 def main(argv=None) -> None:

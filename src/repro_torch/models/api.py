@@ -1,16 +1,16 @@
-"""Family-dispatch model API (port of ``repro.models.api``) for the GNN
-and recsys families.
+"""Family-dispatch model API (port of ``repro.models.api``) for the LM,
+GNN and recsys families.
 
     api = model_api(arch.config)
     params = api.init(generator, device)          (device "meta": shapes only)
     step, opt = make_train_step(cfg)              (params, opt, batch) -> ...
     serve = make_serve_step(cfg)                  (params, batch) -> logits
+    pre = make_prefill_step(cfg)                  (params, tokens) -> ...
+    dec = make_decode_step(cfg)                   (params, cache, token) -> ...
     specs = input_specs(cfg, shape)               (shape, dtype) per input
     batch = make_batch(cfg, shape, generator, device)       (recsys)
 
-A step takes and returns plain trees of tensors. The LM family
-(``transformer.py``, ``LMConfig``) waits for its slice of the port; its
-entry points raise, naming it.
+A step takes and returns plain trees of tensors.
 """
 
 from __future__ import annotations
@@ -23,11 +23,10 @@ import torch
 
 from repro_torch.common.util import (round_up, tree_flatten_with_path,
                                      tree_unflatten)
-from repro_torch.config.base import GNNConfig, RecsysConfig, ShapeSpec
-from repro_torch.models import gnn, recsys
+from repro_torch.config.base import (GNNConfig, LMConfig, RecsysConfig,
+                                     ShapeSpec)
+from repro_torch.models import gnn, recsys, transformer
 from repro_torch.training.optimizer import make_optimizer
-
-_LM = "the LM slice of the port (transformer.py, LMConfig)"
 
 
 class ModelAPI(NamedTuple):
@@ -37,6 +36,10 @@ class ModelAPI(NamedTuple):
 
 
 def model_api(cfg) -> ModelAPI:
+    if isinstance(cfg, LMConfig):
+        return ModelAPI(init=functools.partial(transformer.init_lm, cfg),
+                        loss=functools.partial(transformer.lm_loss, cfg),
+                        family="lm")
     if isinstance(cfg, GNNConfig):
         return ModelAPI(init=functools.partial(gnn.init_gnn, cfg),
                         loss=functools.partial(gnn.gnn_loss, cfg),
@@ -45,8 +48,8 @@ def model_api(cfg) -> ModelAPI:
         return ModelAPI(init=functools.partial(recsys.init_recsys, cfg),
                         loss=functools.partial(recsys.recsys_loss, cfg),
                         family="recsys")
-    raise TypeError(f"the port has no model API for {type(cfg).__name__} "
-                    f"yet: it waits for {_LM}")
+    raise TypeError(f"no model API for {type(cfg).__name__}: the families "
+                    f"are LMConfig, GNNConfig and RecsysConfig")
 
 
 # ---------------------------------------------------------------------------
@@ -90,12 +93,31 @@ def make_eval_step(cfg):
     return eval_step
 
 
-def make_decode_step(cfg):
-    raise NotImplementedError(f"the decode step waits for {_LM}")
+def _lm_only(cfg, what: str) -> None:
+    if not isinstance(cfg, LMConfig):
+        raise TypeError(f"{what} is an LM step; got {type(cfg).__name__}")
 
 
-def make_prefill_step(cfg):
-    raise NotImplementedError(f"the prefill step waits for {_LM}")
+def make_decode_step(cfg: LMConfig):
+    """(params, cache, token) -> (cache, logits f32[B, V]): ``decode_step``
+    without autograd (it writes the new K/V into ``cache`` in place)."""
+    _lm_only(cfg, "the decode step")
+
+    @torch.no_grad()
+    def decode(params, cache, token):
+        return transformer.decode_step(cfg, params, cache, token)
+    return decode
+
+
+def make_prefill_step(cfg: LMConfig):
+    """(params, tokens) -> (cache, last-position logits f32[B, V]):
+    ``prefill`` without autograd."""
+    _lm_only(cfg, "the prefill step")
+
+    @torch.no_grad()
+    def pre(params, tokens):
+        return transformer.prefill(cfg, params, tokens)
+    return pre
 
 
 def make_serve_step(cfg: RecsysConfig):
@@ -151,10 +173,22 @@ def resolve_config(cfg, shape: ShapeSpec):
     return cfg
 
 
-def input_specs(cfg, shape: ShapeSpec) -> dict[str, tuple[tuple, torch.dtype]]:
+def input_specs(cfg, shape: ShapeSpec) -> dict[str, Any]:
     """Step inputs of one (arch, shape) cell as ``(shape, dtype)`` pairs:
-    the ``graph_*`` kinds, and ``recsys_train`` / ``recsys_serve`` /
-    ``recsys_retrieval``."""
+    the LM kinds ``train``, ``prefill`` and ``decode`` (whose ``cache`` is
+    a ``KVCache`` of such pairs), the ``graph_*`` kinds, and
+    ``recsys_train`` / ``recsys_serve`` / ``recsys_retrieval``."""
+    if isinstance(cfg, LMConfig):
+        b, s = shape["global_batch"], shape["seq_len"]
+        if shape.kind in ("train", "prefill"):
+            return {"tokens": ((b, s), torch.int32)}
+        if shape.kind == "decode":
+            cdt = getattr(torch, cfg.compute_dtype)
+            kv = ((cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim), cdt)
+            return {"cache": transformer.KVCache(
+                        k=kv, v=kv, length=((), torch.int32)),
+                    "token": ((b,), torch.int32)}
+        raise ValueError(f"LM has no shape kind {shape.kind}")
     if isinstance(cfg, GNNConfig):
         n, e = _gnn_block_sizes(shape)
         d_feat = shape.get("d_feat", cfg.in_node_dim)
@@ -165,8 +199,7 @@ def input_specs(cfg, shape: ShapeSpec) -> dict[str, tuple[tuple, torch.dtype]]:
                 "node_targets": ((n, cfg.out_dim), torch.float32),
                 "node_mask": ((n,), torch.bool)}
     if not isinstance(cfg, RecsysConfig):
-        raise TypeError(f"the port has no input specs for "
-                        f"{type(cfg).__name__} yet: it waits for {_LM}")
+        raise TypeError(f"no input specs for {type(cfg).__name__}")
     if shape.kind not in ("recsys_train", "recsys_serve", "recsys_retrieval"):
         raise ValueError(f"a recsys config has no shape kind {shape.kind!r}")
     hot = max(cfg.multi_hot_sizes) if cfg.multi_hot_sizes else 1

@@ -1,14 +1,13 @@
-"""Shared layers in functional form (port of the parts of
-``repro.models.layers`` that the recsys models and the GNN need).
+"""Shared layers in functional form (port of ``repro.models.layers``:
+what the LM family, the recsys models and the GNN need).
 
 Parameters are plain dicts and tuples of tensors. Every init takes an
 explicit ``torch.Generator`` and a device; on the ``"meta"`` device it
 allocates nothing, which gives a tree's shapes. The forward layers keep
-the reference's arithmetic: ``mha`` is plain einsums with f32 logits
-(not ``F.scaled_dot_product_attention``, which takes neither a soft cap
-nor the reference's masking constant), and a product of two dtypes runs in
-their promoted dtype, as ``jnp`` promotes. ``rmsnorm``, ``rope``,
-``chunked_mha`` and ``attention_mask`` come with the LM slice.
+the reference's arithmetic: ``mha`` and ``chunked_mha`` are plain einsums
+with f32 logits (not ``F.scaled_dot_product_attention``, which takes
+neither a soft cap nor the reference's masking constant), and a product of
+two dtypes runs in their promoted dtype, as ``jnp`` promotes.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -34,6 +34,22 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
 def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=device) * 0.02
             ).to(_dtype(dtype))
+
+
+def rmsnorm_init(dim, dtype, device, layers=None) -> dict:
+    shape = (dim,) if layers is None else (layers, dim)
+    return {"scale": torch.zeros(shape, dtype=_dtype(dtype), device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with the (1 + scale) parameterization (gemma's): the mean
+    square in f32, ``x * rsqrt(ms + eps) * (1 + scale)``, cast back to x's
+    dtype."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"].to(torch.float32))).to(x.dtype)
 
 
 def layernorm_init(dim, dtype, device, layers=None) -> dict:
@@ -62,12 +78,41 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(dt) @ w.to(dt)
 
 
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, halves rotated: x [..., S, H, hd], positions
+    [..., S] (int). The frequencies ``theta ** (-arange(half) / half)``
+    and the angles ``position * freq`` are f32, as the reference forms
+    them; the rotation runs in the promoted dtype of x and f32, cast back
+    to x's dtype."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., :, None].to(torch.float32) * freq   # [..., S, half]
+    ang = ang[..., :, None, :]                               # [..., S, 1, half]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-2 logit soft-capping: ``cap * tanh(x / cap)`` in f32, cast
     back to x's dtype; the identity for ``cap <= 0``."""
     if cap <= 0.0:
         return x
     return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
+
+
+def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                   causal: bool, window) -> torch.Tensor:
+    """[..., Sq, Skv] boolean: ``q - kv < window`` (and ``>= 0`` when
+    causal); layers with unrestricted attention pass a huge window."""
+    diff = q_pos[..., :, None] - kv_pos[..., None, :]
+    mask = diff < window
+    if causal:
+        mask &= diff >= 0
+    return mask
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,6 +135,76 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
     return out.reshape(b, sq, h, hd)
+
+
+def chunked_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
+                window, logit_cap: float = 0.0, chunk: int = 512,
+                scale: float | None = None) -> torch.Tensor:
+    """Online-softmax (flash-style) attention over KV chunks of ``chunk``
+    rows: O(Sq * chunk) scores instead of O(Sq * Skv). q: [B, Sq, H, hd],
+    k/v: [B, Skv, KV, hd], q_pos [B, Sq], kv_pos [B, Skv] -> [B, Sq, H, hd].
+
+    The reference's loop: KV padded to whole chunks at position -1 (never
+    valid); q times ``scale`` in the promoted dtype of q and f32 (the
+    reference's numpy scale promotes a bf16 q); f32 logits, soft-capped,
+    set to -1e30 where masked; running max, numerator and denominator in
+    f32; the probabilities cast to k's dtype before they weigh v; the
+    output ``num / max(den, 1e-30)`` in q's dtype. With grad enabled each
+    chunk runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint(step)``): the backward recomputes a chunk's
+    probabilities instead of keeping them."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    groups = h // kvh
+    scale_ = scale if scale is not None else 1.0 / math.sqrt(hd)
+    n_chunks = -(-skv // chunk)
+    pad = n_chunks * chunk - skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+    qdt = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, sq, kvh, groups, hd).to(qdt) * scale_
+    qp = q_pos[:, None, None, :, None]
+
+    def step(m, num, den, kc, vc, pc):
+        logits = torch.einsum("bqkgh,bskh->bkgqs", qg,
+                              kc.to(torch.float32))
+        logits = softcap(logits, logit_cap)
+        pcb = pc[:, None, None, None, :]
+        diff = qp - pcb
+        mask = (pcb >= 0) & (diff < window)
+        if causal:
+            mask &= diff >= 0
+        logits = torch.where(mask, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        pv = torch.einsum("bkgqs,bskh->bkgqh",
+                          p.to(kc.dtype).to(torch.float32),
+                          vc.to(torch.float32))
+        num = num * alpha[..., None] + pv
+        den = den * alpha + p.sum(dim=-1)
+        return m_new, num, den
+
+    m = torch.full((b, kvh, groups, sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    num = torch.zeros((b, kvh, groups, sq, hd), dtype=torch.float32,
+                      device=q.device)
+    den = torch.zeros((b, kvh, groups, sq), dtype=torch.float32,
+                      device=q.device)
+    remat = torch.is_grad_enabled()
+    for c in range(n_chunks):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        xs = (k[:, rows], v[:, rows], kv_pos[:, rows])
+        if remat:
+            m, num, den = checkpoint(step, m, num, den, *xs,
+                                     use_reentrant=False)
+        else:
+            m, num, den = step(m, num, den, *xs)
+    out = (num / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
 
 
 def gated_mlp_init(gen: torch.Generator, d, f, dtype, device,

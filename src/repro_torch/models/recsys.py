@@ -136,6 +136,8 @@ def _carry(node, like, device: torch.device, path: str):
         return tuple(_carry(n, lk, device, f"{path}[{i}]")
                      for i, (n, lk) in enumerate(zip(node, like)))
     arr = np.asarray(node)
+    if arr.dtype.name == "bfloat16":      # ml_dtypes' bf16: exact in f32
+        arr = arr.astype(np.float32)
     if arr.shape != tuple(like.shape):
         raise ValueError(f"{path}: shape {arr.shape}, expected "
                          f"{tuple(like.shape)}")

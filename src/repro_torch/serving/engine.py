@@ -33,8 +33,8 @@ finalize under the engine's ``alive`` mask, or the mask its
 ``heartbeats`` monitor derives. A shard marked dead mid-drain degrades
 recall, not availability: responses finalized under a partial quorum are
 flagged ``degraded`` and hold no id of a dead shard. ``alive=`` on an
-unsharded index raises. ``greedy_generate`` waits for the port's
-transformer (ROADMAP Queue 1 item 17).
+unsharded index raises. ``greedy_generate`` is the LM family's helper:
+prefill, then greedy decode steps against the KV cache.
 """
 
 from __future__ import annotations
@@ -537,9 +537,36 @@ class SearchEngine:
 
 
 def greedy_generate(cfg, params, prompt_tokens: np.ndarray, n_new: int,
-                    max_len: Optional[int] = None):
-    """The reference's LM generation helper (prefill + greedy decode) needs
-    the port's transformer, which waits for ROADMAP Queue 1 item 17."""
-    raise NotImplementedError(
-        "greedy_generate: the port has no transformer yet (ROADMAP Queue 1 "
-        "item 17)")
+                    max_len: Optional[int] = None,
+                    return_logits: bool = False,
+                    on_step: Optional[Callable[[], None]] = None):
+    """LM generation (prefill + greedy decode), the RAG example's helper:
+    batch-first prompt tokens int32[B, S] -> the ``n_new`` greedy tokens
+    int32[B, n_new] as numpy, on the device of ``params``. The cache holds
+    ``max_len`` positions (default S + n_new). As in the reference, each
+    of the ``n_new`` tokens is fed to a decode step, the last one's logits
+    unused; ``return_logits`` returns them too (f32[B, V], on the device).
+    The tokens stay on the device until the end: one copy to the host.
+    ``on_step`` (if given) is called before the prefill is issued and
+    after it and each decode step are issued (a caller records CUDA events
+    there to time them on the stream)."""
+    import torch
+
+    from repro_torch.models.transformer import decode_step, prefill
+    mark = on_step or (lambda: None)
+    dev = params["embed"].device
+    tokens = torch.as_tensor(np.asarray(prompt_tokens, np.int32), device=dev)
+    b, s = tokens.shape
+    out = torch.empty((b, n_new), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        mark()
+        cache, logits = prefill(cfg, params, tokens,
+                                max_len=max_len or s + n_new)
+        mark()
+        for i in range(n_new):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            out[:, i] = nxt
+            cache, logits = decode_step(cfg, params, cache, nxt)
+            mark()
+    tokens_out = out.cpu().numpy()
+    return (tokens_out, logits) if return_logits else tokens_out

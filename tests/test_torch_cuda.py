@@ -873,3 +873,87 @@ def test_ranking_smoke_forward_loss_and_grads_on_the_card_match_the_cpu_copy(
         assert g.device.type == "cuda"
         err = float((g.cpu() - w).abs().max())
         assert err <= 5e-3 * float(w.abs().max().clamp(min=1e-30))
+
+
+LM_ARCHS = ["gemma-7b", "qwen1.5-0.5b", "gemma2-9b", "kimi-k2-1t-a32b",
+            "granite-moe-3b-a800m"]
+
+
+def _kernel_counts():
+    return (distance_matrix.LAUNCHES, segment_sum.LAUNCHES,
+            gather_distance.LAUNCHES, gather_distance.ONE_LANE_LAUNCHES,
+            quantized.LAUNCHES, quantized_gather_distance.LAUNCHES,
+            quantized_gather_distance.ONE_LANE_LAUNCHES)
+
+
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_lm_smoke_serving_on_the_card_matches_the_cpu_copy(cuda, arch_id):
+    """Each LM SMOKE config (f32, TF32 off): prefill logits and cache, two
+    decode steps and ``greedy_generate``'s tokens on the card equal a CPU
+    copy's (logits at rtol 1e-4 / atol 1e-4: other summation orders, and
+    the MoE combine's atomic adds); the decode step reads nothing back to
+    the host (CUDA sync debug mode "error"); the cache is updated in
+    place; no kernel of the port launches (the LM path has none)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import greedy_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch_id).smoke_config
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, size=(2, 20)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 2)).astype(np.int32)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    pc = _to(params, cuda)
+    before = _kernel_counts()
+    with torch.no_grad():
+        want_cache, want = T.prefill(cfg, params, torch.from_numpy(prompt),
+                                     max_len=24)
+        cache, got = T.prefill(cfg, pc, torch.from_numpy(prompt).to(cuda),
+                               max_len=24)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+        torch.testing.assert_close(cache.k.cpu(), want_cache.k, **tol)
+        assert cache.length.device.type == "cuda"
+        k_ptr = cache.k.data_ptr()
+        for i in range(2):
+            want_cache, want = T.decode_step(cfg, params, want_cache,
+                                             torch.from_numpy(toks[:, i]))
+            tok = torch.from_numpy(toks[:, i]).to(cuda)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out, got = T.decode_step(cfg, pc, cache, tok)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert out is cache and cache.k.data_ptr() == k_ptr
+            torch.testing.assert_close(got.cpu(), want, **tol)
+        assert int(cache.length) == 22
+        torch.testing.assert_close(cache.v.cpu(), want_cache.v, **tol)
+    prompt8 = prompt[:, :8]
+    np.testing.assert_array_equal(greedy_generate(cfg, pc, prompt8, 4),
+                                  greedy_generate(cfg, params, prompt8, 4))
+    assert _kernel_counts() == before
+
+
+def test_lm_smoke_loss_and_grads_on_the_card_match_the_cpu_copy(cuda):
+    """gemma2-9b SMOKE (f32, remat on): loss on the card at rtol 1e-4 of
+    its CPU copy's, every gradient leaf within 1e-3 of that leaf's largest
+    magnitude (the embedding's backward scatter-adds atomically)."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("gemma2-9b").smoke_config, remat=True)
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 40)).astype(np.int32))
+    loss_fn = api.model_api(cfg).loss
+    want_loss, _, want = api.value_and_grad(loss_fn, params,
+                                            {"tokens": tokens})
+    loss, _, grads = api.value_and_grad(loss_fn, _to(params, cuda),
+                                        {"tokens": tokens.to(cuda)})
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-4, atol=1e-5)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        assert g.device.type == "cuda"
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-3 * float(w.abs().max().clamp(min=1e-30))

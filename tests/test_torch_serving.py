@@ -20,9 +20,11 @@ import torch
 from repro.query import operators as jops
 from repro.serving.engine import SearchEngine as JSearchEngine
 from repro.storage.columnar import GraphStore as JGraphStore
+from repro_torch.config.base import get_arch
 from repro_torch.core import bitset
 from repro_torch.core.graph import FIELDS, graph_from_numpy
 from repro_torch.core.navix import NavixConfig, NavixIndex
+from repro_torch.models.api import model_api
 from repro_torch.query.operators import Filter, KnnSearch, NodeScan
 from repro_torch.serving import greedy_generate
 from repro_torch.serving.engine import SearchEngine
@@ -184,9 +186,11 @@ def test_batched_requests(port_index, queries):
 
 
 def test_what_waits_for_later_items_raises(port_index):
-    """LM generation waits for ROADMAP Queue 1 item 17. Sharded serving
-    has landed (``tests/test_torch_serving_sharded.py``); what is neither
-    a NavixIndex nor a ShardedNavix is refused by name."""
+    """Sharded serving has landed (``tests/test_torch_serving_sharded.py``);
+    what is neither a NavixIndex nor a ShardedNavix is refused by name. LM
+    generation has landed too: ``greedy_generate`` on a SMOKE LM returns
+    the new tokens, int32[B, n_new] (its parity with the reference is in
+    ``tests/test_torch_transformer.py``)."""
     with pytest.raises(TypeError, match="NavixIndex and ShardedNavix"):
         make_backend(object(), None)
     with pytest.raises(TypeError, match="NavixIndex and ShardedNavix"):
@@ -194,8 +198,12 @@ def test_what_waits_for_later_items_raises(port_index):
     with pytest.raises(TypeError, match="NavixIndex and ShardedNavix"):
         SearchEngine(index=SimpleNamespace(device=torch.device("cpu")),
                      store=_store(10))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        greedy_generate(None, None, np.zeros((1, 4), np.int32), 2)
+    cfg = get_arch("qwen1.5-0.5b").smoke_config
+    params = model_api(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    out = greedy_generate(cfg, params, np.zeros((1, 4), np.int32), 2)
+    assert isinstance(out, np.ndarray)
+    assert out.shape == (1, 2) and out.dtype == np.int32
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
 
 
 def test_engine_runs_on_its_index_device(port_index):

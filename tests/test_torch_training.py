@@ -247,12 +247,14 @@ def test_gnn_specs_equal_reference(shape_name):
 
 
 def test_what_waits_for_later_slices_raises():
+    """What is not a model config is refused by name (the LM family has
+    landed: its decode step takes only an LM config)."""
     cfg = get_arch("bst").smoke_config
-    with pytest.raises(NotImplementedError, match="LM slice"):
+    with pytest.raises(TypeError, match="LM step; got RecsysConfig"):
         api.make_decode_step(cfg)
-    with pytest.raises(TypeError, match="LM slice"):
+    with pytest.raises(TypeError, match="no model API for object"):
         api.model_api(object())
-    with pytest.raises(NotImplementedError, match="LM slice"):
+    with pytest.raises(TypeError, match="no synthetic data for object"):
         next(launch.data_iterator(object(), 2, 4, device="cpu"))
 
 
