@@ -29,7 +29,15 @@ gemma2-9b's full config (42 layers, bf16, 9.24 B parameters) through
 32 new tokens each; the last decode step against a prefill of the whole
 sequence, a decode step under CUDA's sync debug mode, one profiled; the
 full-width model cut to 2 layers in f32 against its CPU copy; no kernel
-of the port launched, since the LM path has none), trains
+of the port launched, since the LM path has none), trains gemma2-9b's
+full config through ``make_train_step`` with Adafactor and remat
+(``[train_lm]``: 1 x 4,096 random tokens, a warm-up and 3 timed steps,
+one profiled; the loss on the batch falls; the full width cut to 2
+layers in f32, one step against its CPU copy; no kernel of the port
+launched), dry-runs that train step (``[dryrun]``: in two subprocesses
+started before the index build, on the 256-rank production mesh and on
+one card at ``[train_lm]``'s batch, each record ``ok``, the one-card
+roofline printed beside the measured step), trains
 MeshGraphNet's full
 config on Reddit-regime minibatch blocks sampled from a power-law graph
 through the port's checkpointed training loop, kernel 7 aggregating every
@@ -86,10 +94,13 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import dataclasses
 import json
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -143,6 +154,7 @@ from repro_torch.models import gnn, recsys  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import greedy_generate  # noqa: E402
 from repro_torch.training import loop as train_loop  # noqa: E402
+from repro_torch.launch.dryrun import MESHES  # noqa: E402
 
 # GIST1M (TEXMEX; the paper's Table 2): 1M vectors of width 960, l2
 N_GIST = 1_000_000
@@ -154,8 +166,8 @@ K = 100
 EFS = 200
 BUILD_MORSEL = 2048          # the paper's morsel size
 # per sigma and per arm (f32, int8); cut from 8 to 4 to make room for
-# [gnn], and to 2 for [rank]
-PARITY_LANES = 2
+# [gnn], to 2 for [rank], and to 1 for [train_lm]
+PARITY_LANES = 1
 PARITY_SIGMAS = (1.0, 0.1, 0.01)
 # kernel vs plain version: a different f32 summation order
 RTOL, ATOL = 1e-5, 1e-4
@@ -339,6 +351,31 @@ LM_CHECK_SHAPE = (2, 128)
 LM_CHECK_NEW = 4
 LM_CHECK_TOL = dict(rtol=1e-4, atol=1e-4)
 LM_MEM_SLACK = 64 << 20     # bytes the phase may leave allocated
+# [train_lm]: gemma2-9b's full CONFIG (42 layers, bf16, remat) trained
+# through make_train_step with Adafactor, the CONFIG's optimizer, on random
+# tokens at train_4k's sequence length; the batch cut from train_4k's 256
+# sequences to the one a card holds
+TRAIN_LM_SHAPE = "train_4k"
+TRAIN_LM_BATCH = 1
+TRAIN_LM_STEPS = 3          # timed, after one warm-up step
+# Adafactor's learning rate: its default, an absolute 1e-2 a step on
+# weights of RMS ~1/sqrt(3584) = 0.017, raised the loss on the batch in 4
+# steps (13.178 -> 15.633); 1e-4, 1e-3 and 3e-3 each lowered it
+TRAIN_LM_LR = 1e-3
+# the card against its CPU copy: full width cut to 2 layers in f32 (depth
+# for the CPU copy's time), one train step on TRAIN_LM_CHECK_SHAPE tokens;
+# each leaf's new value within TRAIN_LM_REL_TOL of the leaf's largest
+# update (the embedding's backward scatter-adds atomically on the card)
+TRAIN_LM_CHECK = dict(n_layers=2, param_dtype="float32",
+                      compute_dtype="float32")
+TRAIN_LM_CHECK_SHAPE = (1, 128)
+TRAIN_LM_REL_TOL = 5e-3
+TRAIN_LM_LOSS_TOL = dict(rtol=1e-4, atol=1e-4)
+# [dryrun]: the dry run of [train_lm]'s cell on the production mesh and on
+# one card, each in a subprocess of its own (the fake process group never
+# enters this process), started before [build] and collected at the end
+DRYRUN_MESHES = (("single", None), ("one", TRAIN_LM_BATCH))
+DRYRUN_TIMEOUT_S = 900
 F32_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
 INT8_SOURCE = "src/repro_torch/kernels/csrc/quantized_gather_distance.cu"
 TPU_KERNELS = "src/repro/kernels/gather_distance.py"
@@ -2218,6 +2255,252 @@ def phase_lm(smi: str) -> None:
           + f"; {stages.line()}", flush=True)
 
 
+def phase_train_lm(smi: str) -> dict:
+    """LM training at full width: gemma2-9b's CONFIG (9.24 B parameters,
+    bf16, remat) through ``make_train_step`` with Adafactor on one batch of
+    random tokens, TRAIN_LM_BATCH x train_4k's 4,096: a warm-up step, then
+    TRAIN_LM_STEPS timed, then one profiled. Checks: every loss finite; the
+    loss on the batch after the steps below the first step's; the full
+    width cut to 2 layers in f32, one step on the card against its CPU
+    copy (every leaf within TRAIN_LM_REL_TOL of its largest update); no
+    kernel of the port launched; the allocator back within LM_MEM_SLACK.
+    Returns the measured numbers, which [dryrun] holds its roofline
+    against."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    lap = (stages := Stages()).lap
+    before = launch_counts()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    arch = get_arch(LM_ARCH)
+    cfg = arch.config
+    shape = arch.shape(TRAIN_LM_SHAPE)
+    b, s = TRAIN_LM_BATCH, shape["seq_len"]
+    params = model_api.model_api(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(400)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    step, opt = model_api.make_train_step(cfg, lr=TRAIN_LM_LR)
+    opt_state = opt.init(params)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    lap("init")
+
+    params, opt_state, m = step(params, opt_state, batch)       # warm-up
+    losses = [float(m["loss"])]
+    lap("warm-up")
+    step_ms = []
+    for _ in range(TRAIN_LM_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    after = float(model_api.make_eval_step(cfg)(params, batch)["loss"])
+    lap("steps")
+    # the device's activity only: a step runs ~133,000 host ops, whose
+    # events would cost the profiler tens of seconds
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        params, opt_state, _ = step(params, opt_state, batch)
+        sync()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    del params, opt_state, m
+    torch.cuda.empty_cache()
+    lap("profiled step")
+
+    # the card against its CPU copy: full width, 2 layers, f32
+    small = dataclasses.replace(cfg, **TRAIN_LM_CHECK)
+    params_c = model_api.model_api(small).init(
+        torch.Generator(device="cuda").manual_seed(1), "cuda")
+    params_h = _to_cpu(params_c)
+    tok = {"tokens": torch.randint(0, cfg.vocab_size, TRAIN_LM_CHECK_SHAPE,
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int32)}
+    step_s, opt_s = model_api.make_train_step(small)
+    new_c, _, m_c = step_s(params_c, opt_s.init(params_c), tok)
+    del params_c
+    lap("check, card")
+    # the CPU copy's step runs on a worker thread while this one reads the
+    # profile: its ops release the interpreter lock, the reading is Python
+    with ThreadPoolExecutor(1) as pool:
+        cpu_step = pool.submit(step_s, params_h, opt_s.init(params_h),
+                               {"tokens": tok["tokens"].cpu()})
+        ops_ms = device_ops(prof.key_averages())
+        new_h, _, m_h = cpu_step.result()
+    busy = sum(t for _, t, _ in ops_ms)
+    check(busy > 0, "[train_lm] the profiler saw no device time")
+    top = sorted(ops_ms, key=lambda o: -o[1])[:4]
+    lap("check, CPU copy, with the profile read")
+    errs = {}                   # compared on the card, a leaf at a time
+    for (path, got), want, old in zip(tree_flatten_with_path(new_c)[0],
+                                      tree_leaves(new_h),
+                                      tree_leaves(params_h)):
+        want, old = want.to("cuda"), old.to("cuda")
+        upd = (want - old).abs().max().clamp(min=1e-30)
+        errs[".".join(path)] = float((got - want).abs().max() / upd)
+        del want, old
+    loss_c, loss_h = float(m_c["loss"]), float(m_h["loss"])
+    del new_c, new_h, params_h, m_c, m_h, tok, batch, gen
+    worst = max(errs, key=errs.get)
+    loss_err = abs(loss_c - loss_h)
+    # the backward runs on the autograd engine's thread, whose cuBLAS
+    # handle has a workspace of its own: the allocator's, not the phase's
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - mem0
+    launched = launch_counts()
+    lap("check, compare")
+
+    med = float(np.median(step_ms))
+    model_flops = 6.0 * cfg.n_active_params() * b * s
+    mfu = model_flops / (med / 1e3) / TARGET.peak_bf16_flops
+    print(f"[train_lm] {LM_ARCH} CONFIG ({arch.source}; {cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.param_dtype}, remat "
+          f"{cfg.remat}): {n_params:,} parameters; make_train_step with "
+          f"{opt.name} (lr {TRAIN_LM_LR}) on one batch of random tokens, "
+          f"{b} x {s:,} "
+          f"({TRAIN_LM_SHAPE}'s sequence length; its batch cut from "
+          f"{shape['global_batch']} to the one a card holds): losses "
+          + ", ".join(f"{x:.5f}" for x in losses)
+          + f", after the steps {after:.5f}; step ms "
+          + ", ".join(f"{t:.1f}" for t in step_ms)
+          + f" (median {med:.2f}); peak memory {peak:,} B; model FLOPs "
+          f"6 N D = {model_flops:.4e}, MFU {100 * mfu:.2f}% of the "
+          f"{TARGET.peak_bf16_flops:.3e} bf16 peak; one step profiled: wall "
+          f"{prof_ms:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / prof_ms:.1f}%), "
+          f"{sum(c for _, _, c in ops_ms)} device ops; top: "
+          + "; ".join(f"{k[:40]} {t:.1f} ms x{c}" for k, t, c in top)
+          + f"; {smi}", flush=True)
+    print(f"[train_lm] checks: every loss finite, the loss after the steps "
+          f"below the first; the card vs its CPU copy (2 layers, f32, "
+          f"{TRAIN_LM_CHECK_SHAPE[0]} x {TRAIN_LM_CHECK_SHAPE[1]} tokens, one "
+          f"step): at most {errs[worst]:.3e} of a leaf's largest update "
+          f"({worst}; median {np.median(list(errs.values())):.3e} over "
+          f"{len(errs)} leaves; limit {TRAIN_LM_REL_TOL}), loss |d| "
+          f"{loss_err:.3e}; no kernel of the port launched; {left:,} B left "
+          f"after; phase {time.perf_counter() - t_phase:.1f}s; "
+          f"{stages.line()}", flush=True)
+    check(all(np.isfinite(losses + [after])),
+          f"[train_lm] losses {losses}, after {after}")
+    check(after < losses[0],
+          f"[train_lm] the loss on the batch after {len(losses)} steps, "
+          f"{after}, is not below the first step's {losses[0]}")
+    check(errs[worst] <= TRAIN_LM_REL_TOL,
+          f"[train_lm] the 2-layer f32 step on the card vs its CPU copy: "
+          f"{errs} of each leaf's largest update (limit {TRAIN_LM_REL_TOL})")
+    check(np.isclose(loss_c, loss_h, **TRAIN_LM_LOSS_TOL),
+          f"[train_lm] the 2-layer f32 loss on the card {loss_c} vs its CPU "
+          f"copy {loss_h}")
+    check(left <= LM_MEM_SLACK,
+          f"[train_lm] {left:,} B still allocated after the phase")
+    check(launched == before,
+          f"[train_lm] the training path launched a kernel: {before} -> "
+          f"{launched}")
+    return {"step_ms": med, "peak": peak, "busy_share": busy / prof_ms,
+            "model_flops": model_flops, "mfu": mfu, "batch": b, "seq": s}
+
+
+class DryRun:
+    """``[dryrun]``: the dry run of [train_lm]'s cell
+    (``python -m repro_torch.launch.dryrun``), one subprocess for each mesh
+    of DRYRUN_MESHES, writing its record into a temporary directory of the
+    checkout; the fake process group lives in those processes only.
+    :meth:`collect` waits for them (at most DRYRUN_TIMEOUT_S from the
+    start), checks both records ``ok``, prints them and holds the one-card
+    roofline against [train_lm]'s measured step; :meth:`stop` ends any
+    still running and removes the directory."""
+
+    def __init__(self):
+        self.dir = pathlib.Path(tempfile.mkdtemp(prefix="dryrun_", dir=ROOT))
+        self.t0 = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        self.procs = {}
+        for mesh, batch in DRYRUN_MESHES:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", LM_ARCH, "--shape", TRAIN_LM_SHAPE, "--mesh",
+                   mesh, "--out", str(self.dir), "--force"]
+            if batch is not None:
+                cmd += ["--batch", str(batch)]
+            log = open(self.dir / f"{mesh}.log", "w")
+            self.procs[mesh] = (subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
+                log)
+
+    def stop(self) -> None:
+        for proc, log in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def collect(self, measured: dict, smi: str) -> None:
+        recs = {}
+        for mesh, (proc, log) in self.procs.items():
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - self.t0)
+            try:
+                rc = proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"[dryrun] the {mesh} mesh's run passed "
+                                   f"{DRYRUN_TIMEOUT_S} s") from None
+            log.close()
+            found = sorted(self.dir.glob(f"*{MESHES[mesh][0]}*.json"))
+            tail = (self.dir / f"{mesh}.log").read_text()[-1500:]
+            check(len(found) == 1,
+                  f"[dryrun] the {mesh} mesh's run: rc {rc}, records "
+                  f"{[f.name for f in found]}; its output ends: {tail}")
+            rec = json.loads(found[0].read_text())
+            check(rc == 0 and rec["status"] == "ok",
+                  f"[dryrun] {rec['cell']}: rc {rc}, {rec['status']} "
+                  f"{rec.get('op')}: {rec.get('error', '')[:1500]}\n"
+                  f"{rec.get('trace', '')}")
+            recs[mesh] = rec
+        wall = time.perf_counter() - self.t0
+        for mesh, rec in recs.items():
+            r, mem = rec["roofline"], rec["memory_analysis"]
+            coll = ", ".join(f"{k} {v:.3e}"
+                             for k, v in r["coll_breakdown"].items() if v)
+            print(f"[dryrun] {rec['cell']} ({rec['shape']}): ok in "
+                  f"{rec['run_s']:.1f} s of its process, {r['chips']} "
+                  f"chips; a chip: {r['flops_per_chip']:.4e} FLOPs, "
+                  f"{r['bytes_per_chip']:.4e} B, collectives "
+                  f"{r['coll_bytes_per_chip']:.4e} B ({coll}), peak "
+                  f"{mem['peak_size_in_bytes']:,} B (arguments "
+                  f"{mem['argument_size_in_bytes']:,}); terms compute "
+                  f"{r['t_compute_s']:.4f} / memory {r['t_memory_s']:.4f} / "
+                  f"collective {r['t_collective_s']:.4f} s over {r['link']}; "
+                  f"bound {r['bound_s']:.4f} s ({r['bottleneck']}); model "
+                  f"FLOPs {r['model_flops']:.4e}, useful "
+                  f"{r['useful_flops_fraction']:.3f}; "
+                  f"{r['counter']['n_ops']:,} local ops; comm "
+                  f"{rec['comm_counts']}", flush=True)
+        one = recs["one"]["roofline"]
+        est = recs["one"]["memory_analysis"]["peak_size_in_bytes"]
+        step_s = measured["step_ms"] / 1e3
+        print(f"[dryrun] [train_lm]'s step on the card against the one-card "
+              f"roofline ({measured['batch']} x {measured['seq']:,}): step "
+              f"{measured['step_ms']:.1f} ms vs bound "
+              f"{one['bound_s'] * 1e3:.1f} ms ({one['bottleneck']}; roofline "
+              f"share {100 * one['bound_s'] / step_s:.1f}%); counted FLOPs "
+              f"{one['flops_per_chip']:.4e} vs 6 N D "
+              f"{measured['model_flops']:.4e} (ratio "
+              f"{one['flops_per_chip'] / measured['model_flops']:.3f}); "
+              f"achieved {one['flops_per_chip'] / step_s:.4e} FLOP/s, MFU "
+              f"{100 * measured['mfu']:.2f}%; device busy "
+              f"{100 * measured['busy_share']:.1f}%; peak measured "
+              f"{measured['peak']:,} B vs estimated {est:,} B (ratio "
+              f"{measured['peak'] / est:.3f}); [dryrun] {wall:.1f} s from "
+              f"its start; {smi}", flush=True)
+
+
 def _timed_call(fn, *args) -> tuple:
     """(fn(*args), its wall seconds)."""
     t0 = time.perf_counter()
@@ -3562,6 +3845,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         # the LM serving path: no kernel of the port, the counts unmoved
         timed("lm", phase_lm, smi)
+        # LM training at full width: no kernel of the port either
+        trained = timed("train_lm", phase_train_lm, smi)
         # the GNN training path, its counts read just after its steps
         gnn_launches = timed("gnn", phase_gnn, smi, graph)
         kernels["csr_segment_sum"]["launches"] += gnn_launches
@@ -3573,6 +3858,10 @@ def main() -> int:
         sweep = {s: masks[s] for s in SELECTIVITIES}
         X_shard = X[:SHARD_ROWS].copy()                # [shard]'s rows
 
+        # the dry run of [train_lm]'s cell, in subprocesses while the host
+        # builds the index
+        dry = DryRun()
+        atexit.register(dry.stop)
         reset_counts()                                 # f32 path: build
         idx = timed("build", phase_build, X)           # + search
         del X
@@ -3625,6 +3914,8 @@ def main() -> int:
         shard_read = launch_counts()
         timed("ckpt", phase_ckpt, *ckpt_state, Q)
         del ckpt_state
+        timed("dryrun", dry.collect, trained, smi)
+        dry.stop()
     late_nvcc = {p: k["nvcc"] for p, k in cc.kinds.items()
                  if p != "warmup" and k.get("nvcc")}
     check(not late_nvcc, f"nvcc ran after the kernel builds: {late_nvcc}")

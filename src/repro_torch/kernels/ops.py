@@ -4,7 +4,10 @@ device.
 A CUDA tensor launches the hand-written CUDA kernel or the call raises.
 A CPU tensor runs the kernel's plain PyTorch version (``kernels/ref.py``);
 tensors lie on the CPU only when a caller asked for ``device="cpu"``.
-There is no other path. The single-query entries are one-lane launches of
+Under a sharding policy (``autoshard.activation_sharding``: the dry
+run's) a ``meta`` tensor, which holds shapes without data, takes the
+plain version too, which computes only its output's shape. There is no
+other path. The single-query entries are one-lane launches of
 the batched kernels, so the single-query oracle and the batched engine
 sum in one order on either device.
 """
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.autoshard import sharded
 from repro_torch.kernels import distance_matrix as matrix_kernel
 from repro_torch.kernels import gather_distance as f32_kernel
 from repro_torch.kernels import quantized as int8_matrix_kernel
@@ -29,7 +33,8 @@ def _device(name: str, *tensors: torch.Tensor) -> str:
         raise ValueError(f"the inputs of {name} lie on different devices "
                          f"({', '.join(str(t.device) for t in tensors)})")
     dev = devs.pop()
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu") and not (dev.type == "meta"
+                                                and sharded()):
         raise ValueError(f"no {name} path for device {dev}")
     return dev.type
 

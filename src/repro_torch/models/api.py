@@ -22,9 +22,10 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.common.util import (round_up, tree_flatten_with_path,
-                                     tree_unflatten)
+                                     tree_leaves, tree_unflatten)
 from repro_torch.config.base import (GNNConfig, LMConfig, RecsysConfig,
                                      ShapeSpec)
+from repro_torch.distributed.autoshard import constrain_like
 from repro_torch.models import gnn, recsys, transformer
 from repro_torch.training.optimizer import make_optimizer
 
@@ -77,6 +78,12 @@ def make_train_step(cfg, lr: float | None = None):
 
     def train_step(params, opt_state, batch):
         _, metrics, grads = value_and_grad(api.loss, params, batch)
+        # under a sharding policy each gradient is reduced to its
+        # parameter's layout before the update; else the identity
+        flat, treedef = tree_flatten_with_path(grads)
+        grads = tree_unflatten(treedef, [
+            constrain_like(g, p)
+            for (_, g), p in zip(flat, tree_leaves(params))])
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, metrics
 

@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import resolve_device
 from repro_torch.config.base import GNNConfig
+from repro_torch.distributed.autoshard import constrain
 from repro_torch.kernels import ops
 from repro_torch.kernels.segment_sum import PAD_SENTINEL
 from repro_torch.models import layers as L
@@ -117,9 +118,9 @@ def gnn_forward(cfg: GNNConfig, params, batch) -> torch.Tensor:
     only for bf16 messages (bf16 parameters). The mean's counts are exact
     integers, where the reference counts in the compute dtype. Under ``cfg.remat`` each
     block runs under ``torch.utils.checkpoint``, so the backward runs its
-    forward again (and kernel 7 with it). The reference's sharding hint on
-    the node states (``autoshard.constrain``) does nothing on one device
-    and is left out until the port has ``distributed/``."""
+    forward again (and kernel 7 with it). Each block lays its node states
+    out over the data axes (``autoshard.constrain``), as the reference
+    does; outside an ``activation_sharding`` policy that is the identity."""
     cdt = L._dtype(cfg.compute_dtype)
     nf = batch["node_feats"].to(cdt)
     src, dst = batch["edge_src"], batch["edge_dst"]
@@ -144,6 +145,9 @@ def gnn_forward(cfg: GNNConfig, params, batch) -> torch.Tensor:
     e = _mlp(params["edge_enc"], ef)
 
     def block(i: int, h: torch.Tensor, e: torch.Tensor):
+        # the node-state carry shards over dp so the saved activations of
+        # the blocks stay sharded
+        h = constrain(h, "dp", None)
         msg_in = torch.cat([e, h[s_safe], h[d_gather]], dim=-1)
         e = e + _mlp(_layer(params["edge_mlp"], i), msg_in)
         agg = ops.csr_segment_sum(torch.where(e_ok[:, None], e, 0), d_seg, n)

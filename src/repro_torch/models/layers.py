@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.autoshard import axis_size, constrain, sharded
+
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
@@ -115,6 +117,26 @@ def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
     return mask
 
 
+def _group_heads(q: torch.Tensor, kvh: int) -> torch.Tensor:
+    """q [B, S, H, hd] -> [B, S, KV, H / KV, hd]. Under a sharding policy
+    q's heads are first gathered over the model axis where the KV heads
+    do not divide it (a DTensor splits no sharded dim unevenly); without
+    one a plain reshape."""
+    b, s, h, hd = q.shape
+    if kvh % axis_size("tp"):
+        q = constrain(q, "dp", None, None, None)
+    return q.reshape(b, s, kvh, h // kvh, hd)
+
+
+def _merged_heads(out: torch.Tensor, kvh: int) -> torch.Tensor:
+    """The attention output [B, S, H, hd], merged from its KV groups, kept
+    with its heads gathered where :func:`_group_heads` gathered them, so
+    the backward splits no sharded dim either."""
+    if kvh % axis_size("tp"):
+        out = constrain(out, "dp", None, None, None)
+    return out
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: torch.Tensor, *, logit_cap: float = 0.0,
         scale: float | None = None) -> torch.Tensor:
@@ -127,14 +149,14 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kvh = k.shape[2]
     groups = h // kvh
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(b, sq, kvh, groups, hd)
+    qg = _group_heads(q, kvh)
     logits = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
                           k.to(torch.float32)) * scale
     logits = softcap(logits, logit_cap)
     logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
-    return out.reshape(b, sq, h, hd)
+    return _merged_heads(out.reshape(b, sq, h, hd), kvh)
 
 
 def chunked_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -165,7 +187,7 @@ def chunked_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         kv_pos = F.pad(kv_pos, (0, pad), value=-1)
     qdt = torch.promote_types(q.dtype, torch.float32)
-    qg = q.reshape(b, sq, kvh, groups, hd).to(qdt) * scale_
+    qg = _group_heads(q, kvh).to(qdt) * scale_
     qp = q_pos[:, None, None, :, None]
 
     def step(m, num, den, kc, vc, pc):
@@ -204,7 +226,8 @@ def chunked_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             m, num, den = step(m, num, den, *xs)
     out = (num / torch.clamp(den, min=1e-30)[..., None]).to(q.dtype)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return _merged_heads(out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd),
+                         kvh)
 
 
 def gated_mlp_init(gen: torch.Generator, d, f, dtype, device,
@@ -220,7 +243,10 @@ def gated_mlp(params: dict, x: torch.Tensor,
     and the up projection side by side; the activation (SiLU for swiglu,
     tanh-approximated GELU for geglu) runs in f32 and is cast back to x's
     dtype."""
-    gate, up = matmul(x, params["wi"]).chunk(2, dim=-1)
+    gate_up = matmul(x, params["wi"])
+    if gate_up.ndim == 3:
+        gate_up = constrain(gate_up, "dp", None, "tp")
+    gate, up = gate_up.chunk(2, dim=-1)
     if activation == "swiglu":
         act = F.silu(gate.to(torch.float32)).to(x.dtype)
     elif activation == "geglu":
@@ -273,6 +299,14 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
 
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Single-hot lookup with -1 -> zeros."""
-    out = table[ids.clamp(min=0)]
+    """Single-hot lookup with -1 -> zeros. Under a sharding policy the
+    rows are taken by ``F.embedding`` (the same rows), whose backward
+    DTensor shards where it has no rule for ``table[ids]``'s, from the
+    table gathered over the data axes as FSDP gathers a weight before its
+    use (its vocabulary stays sharded over model; a lookup into a table
+    whose width shares the ids' data axes masks the wrong rows)."""
+    if sharded():
+        out = F.embedding(ids.clamp(min=0), constrain(table, "tp", None))
+    else:
+        out = table[ids.clamp(min=0)]
     return torch.where((ids >= 0)[..., None], out, 0)

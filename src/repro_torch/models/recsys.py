@@ -14,8 +14,9 @@ cross-entropy, and ``retrieval_scores`` scores one user query by max inner
 product against ``n_candidates`` item embeddings through
 ``ops.distance_matrix`` (the CUDA distance kernel on the card). Plain
 functions on a tree of tensors, as in the JAX module; DIEN's two scans and
-BST's stack of blocks are Python loops over the time steps and blocks. The
-JAX module's ``constrain`` sharding hints are the identity on one card.
+BST's stack of blocks are Python loops over the time steps and blocks.
+The sharding hints (``autoshard.constrain``) are the reference's; outside
+an ``activation_sharding`` policy they are the identity.
 
 Batches: {"dense": f32[B, n_dense], "sparse": int32[B, n_sparse, hot]
 (-1 pad), "seq": int32[B, T] (dien/bst), "target_item": int32[B],
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import RecsysConfig
+from repro_torch.distributed.autoshard import constrain
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -216,7 +218,8 @@ def recsys_forward(cfg: RecsysConfig, params, batch) -> torch.Tensor:
     dense = batch["dense"].to(cdt)
     sparse = batch["sparse"]
     b = dense.shape[0]
-    emb = _sparse_embeddings(cfg, params["tables"], sparse).to(cdt)
+    emb = constrain(_sparse_embeddings(cfg, params["tables"], sparse),
+                    "dp", None, None).to(cdt)
     feats = [emb.reshape(b, -1), dense]
     extra_logit = 0.0
 
@@ -234,7 +237,7 @@ def recsys_forward(cfg: RecsysConfig, params, batch) -> torch.Tensor:
     elif cfg.model == "bst":
         feats += _bst(cfg, params, batch, cdt)
 
-    z = torch.cat(feats, dim=-1)
+    z = constrain(torch.cat(feats, dim=-1), "dp", None)
     logit = L.mlp_stack(params["mlp"], z)[:, 0]
     return (logit + extra_logit).to(torch.float32)
 
@@ -260,9 +263,11 @@ def retrieval_scores(cfg: RecsysConfig, params, batch) -> torch.Tensor:
     cdt = getattr(torch, cfg.compute_dtype)
     cand = batch["candidates"]                     # int32[n_cand]
     table = params.get("item_table", params["tables"][0])
-    cand_emb = L.embedding_lookup(table, cand).to(cdt)
+    cand_emb = constrain(L.embedding_lookup(table, cand), "tp",
+                         None).to(cdt)
     dense = batch["dense"].to(cdt)
     emb = _sparse_embeddings(cfg, params["tables"], batch["sparse"])
     q = emb.mean(dim=1).to(cdt) + 0.0 * dense.sum(dim=-1, keepdim=True)
-    d = ops.distance_matrix(q, cand_emb, metric="dot")     # [B, n_cand]
+    d = constrain(ops.distance_matrix(q, cand_emb, metric="dot"),
+                  None, "tp")                              # [B, n_cand]
     return -d                                               # similarity

@@ -12,7 +12,11 @@ on every block leaf), so a checkpoint's leaf keys and a tree carried from
 the JAX package are one to one; the layers run as a Python loop over that
 axis (the reference scans it). The attention is plain einsums with f32
 logits (``layers.mha`` / ``layers.chunked_mha``); no kernel of the port
-lies on this path.
+lies on this path. The reference's sharding hints (``autoshard.constrain``
+on the embeddings, the residual stream, q/k/v, the logits and the MoE
+dispatch) are kept: outside an ``activation_sharding`` policy they return
+their input, so the numbers are those of the unhinted model; under one
+(the dry run's ``DTensor``s) they lay the activations out as GSPMD would.
 
 Three entry points per the shape kinds:
   lm_loss      -- training forward + next-token cross entropy
@@ -32,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import resolve_device
 from repro_torch.config.base import LMConfig, MoEConfig
+from repro_torch.distributed.autoshard import axis_size, constrain, sharded
 from repro_torch.models import layers as L
 from repro_torch.models.recsys import _carry
 
@@ -195,22 +200,34 @@ def moe_apply(p, x: torch.Tensor, moe: MoEConfig,
     [E, C] slots (:func:`moe_dispatch`); tokens beyond capacity are
     dropped (GShard, cf=1.25).
 
-    The reference groups tokens by data shard (G = the data axis's size);
-    the port runs on one device, so G = 1, and the leading group axis is
-    kept so the arithmetic is the reference's. On CUDA the combine's
-    ``index_add_`` is atomic: the order in which a token's k expert
-    outputs are summed varies from run to run."""
+    Dispatch is grouped by data shard, as the reference groups it: G is
+    ``axis_size("dp")`` under an ``activation_sharding`` policy (1 without
+    one, or where G does not divide T), and each group routes only its own
+    tokens with a per-group capacity, so no dispatch tensor leaves its
+    shard. On CUDA the combine's ``index_add_`` is atomic: the order in
+    which a token's k expert outputs are summed varies from run to run."""
     t, d = x.shape
-    g, tl = 1, t
+    e = moe.n_experts
+    g = axis_size("dp")
+    if t % g:
+        g = 1
+    tl = t // g                                  # tokens per group
     dev = x.device
-    xg = x.reshape(g, tl, d)
+    xg = constrain(x.reshape(g, tl, d), "dp", None, None)
     slot_tok, slot_gate = moe_dispatch(p["router"], xg, moe)
 
     xe = torch.where((slot_tok >= 0)[..., None],
                      xg[torch.arange(g, device=dev)[:, None, None],
                         slot_tok.clamp(min=0)], 0)            # [G, E, C, d]
+    # experts over model (EP), groups over data. When E doesn't divide the
+    # model axis (granite: 40/16), shard capacity over model instead.
+    ec = (("dp", "tp") if e % max(axis_size("tp"), 1) == 0
+          else ("dp", None, "tp"))
+    spec = (ec + (None,) * (4 - len(ec)))[:3] + (None,)
+    xe = constrain(xe, *spec)
     dt = torch.promote_types(xe.dtype, p["wi"].dtype)
-    gate_up = torch.einsum("gecd,edf->gecf", xe.to(dt), p["wi"].to(dt))
+    gate_up = constrain(
+        torch.einsum("gecd,edf->gecf", xe.to(dt), p["wi"].to(dt)), *spec)
     gate, up = gate_up.chunk(2, dim=-1)
     if activation == "swiglu":
         act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype)
@@ -219,7 +236,8 @@ def moe_apply(p, x: torch.Tensor, moe: MoEConfig,
                                        approximate="tanh").to(x.dtype)
     h = act * up
     dt = torch.promote_types(h.dtype, p["wo"].dtype)
-    ye = torch.einsum("gecf,efd->gecd", h.to(dt), p["wo"].to(dt))
+    ye = constrain(torch.einsum("gecf,efd->gecd", h.to(dt), p["wo"].to(dt)),
+                   *spec)
     ye = ye * slot_gate[..., None].to(ye.dtype)
 
     # the reference's .at[...].add(mode="drop") into [Tl + 1, d]: empty
@@ -228,7 +246,7 @@ def moe_apply(p, x: torch.Tensor, moe: MoEConfig,
     dest = torch.where(slot_tok >= 0, slot_tok, tl).reshape(g, -1)
     for j in range(g):
         out[j].index_add_(0, dest[j], ye[j].reshape(-1, d))
-    out = out[:, :tl].reshape(t, d)
+    out = constrain(out[:, :tl], "dp", None, None).reshape(t, d)
     if "shared" in p:
         out = out + L.gated_mlp(p["shared"], x, activation)
     return out
@@ -250,14 +268,27 @@ def _embed(cfg: LMConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _head(cfg: LMConfig, params, x: torch.Tensor) -> torch.Tensor:
-    """Final norm, the (tied) head in the compute dtype, the final soft
-    cap; logits f32."""
+def _head(cfg: LMConfig, params, x: torch.Tensor,
+          roles: tuple = ()) -> torch.Tensor:
+    """Final norm, the (tied) head in the compute dtype (its logits laid
+    out by ``roles`` where given), the final soft cap; logits f32."""
     cdt = L._dtype(cfg.compute_dtype)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     logits = L.matmul(x, head.to(cdt))
+    if roles:
+        logits = constrain(logits, *roles)
     return L.softcap(logits, cfg.final_logit_softcap).to(torch.float32)
+
+
+def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """[B, S, n * hd] -> [B, S, n, hd]. Under a sharding policy the flat
+    width is first gathered over the model axis where n heads do not
+    divide it (a DTensor splits no sharded dim unevenly, where GSPMD
+    reshards by itself); without one a plain reshape."""
+    if n % axis_size("tp"):
+        t = constrain(t, "dp", None, None)
+    return t.reshape(*t.shape[:-1], n, hd)
 
 
 def _qkv(cfg: LMConfig, p, x: torch.Tensor, positions: torch.Tensor):
@@ -268,9 +299,12 @@ def _qkv(cfg: LMConfig, p, x: torch.Tensor, positions: torch.Tensor):
     v = L.matmul(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = L.rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = L.rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
-    return q, k, v.reshape(b, s, kv, hd)
+    q = constrain(_heads(q, h, hd), "dp", None, "tp", None)
+    k = constrain(_heads(k, kv, hd), "dp", None, "tp", None)
+    v = constrain(_heads(v, kv, hd), "dp", None, "tp", None)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def _attn_out_and_mlp(cfg: LMConfig, p, x: torch.Tensor,
@@ -278,17 +312,21 @@ def _attn_out_and_mlp(cfg: LMConfig, p, x: torch.Tensor,
     """The residual after the attention output ``attn`` [B, S, H * hd]:
     the output projection, the post-attention norm, the MLP (or MoE)
     sub-block, the post-MLP norm."""
-    a = L.matmul(attn, p["attn"]["wo"])
+    # the sub-blocks' outputs are kept whole in S, so that their gradients,
+    # laid out as the sequence-sharded residual's, are gathered before the
+    # products' backward flattens [B, S]
+    a = constrain(L.matmul(attn, p["attn"]["wo"]), "dp", None, None)
     if cfg.post_norms:
         a = L.rmsnorm(p["attn_post_norm"], a, cfg.norm_eps)
     x = x + a
-    h = L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
+    h = constrain(L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps), "dp", None, None)
     if cfg.moe is None:
         m = L.gated_mlp(p["mlp"], h, cfg.activation)
     else:
         b, s, d = h.shape
         m = moe_apply(p["mlp"], h.reshape(b * s, d), cfg.moe,
                       cfg.activation).reshape(b, s, d)
+    m = constrain(m, "dp", None, None)
     if cfg.post_norms:
         m = L.rmsnorm(p["mlp_post_norm"], m, cfg.norm_eps)
     return x + m
@@ -299,7 +337,9 @@ def _block(cfg: LMConfig, p, x: torch.Tensor, positions: torch.Tensor,
     """One layer with full-sequence causal attention (within ``window``):
     -> (x', k, v), k and v this layer's [B, S, KV, hd] for a cache."""
     b, s, _ = x.shape
-    h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+    # the sequence re-gathered before the projections (Megatron-SP): a
+    # product flattens [B, S] and a DTensor flattens no sharded S
+    h = constrain(L.rmsnorm(p["attn_norm"], x, cfg.norm_eps), "dp", None, None)
     q, k, v = _qkv(cfg, p["attn"], h, positions)
     if chunked:
         attn = L.chunked_mha(q, k, v, positions, positions, causal=True,
@@ -323,29 +363,41 @@ def lm_forward(cfg: LMConfig, params, tokens: torch.Tensor,
     layer runs under ``torch.utils.checkpoint``."""
     b, s = tokens.shape
     chunked = (s >= 2048) if chunked is None else chunked
-    x = _embed(cfg, params, tokens)
+    x = constrain(_embed(cfg, params, tokens), "dp", None, None)
     positions = _positions(b, s, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, w in enumerate(layer_windows(cfg)):
         p = _layer(params["blocks"], i)
+        # the residual carry is sequence-sharded over the model axis
+        # ("sp"), so the per-layer saved activations are 1/TP the size
+        x = constrain(x, "dp", "sp", None)
         if remat:
             x = checkpoint(_block, cfg, p, x, positions, w, chunked,
                            use_reentrant=False)[0]
         else:
             x = _block(cfg, p, x, positions, w, chunked)[0]
-    return _head(cfg, params, x)
+    x = constrain(x, "dp", None, None)
+    return _head(cfg, params, x, ("dp", None, "tp"))
 
 
 def lm_loss(cfg: LMConfig, params,
             batch) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token cross entropy. batch: {"tokens": int32[B, S]} ->
     ``(loss, {"loss", "ppl"})``: the mean over B x (S - 1) positions of
-    ``logsumexp(logits) - logits[target]``."""
+    ``logsumexp(logits) - logits[target]``. With the vocabulary sharded
+    over a model axis (under a sharding policy) the target logit is a
+    masked sum over the vocabulary, as the reference takes it, which
+    reduces over the shards where a gather would gather them; the two
+    give the same number."""
     tokens = batch["tokens"]
     logits = lm_forward(cfg, params, tokens)[:, :-1]        # [B, S-1, V]
     targets = tokens[:, 1:].long()
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if axis_size("tp") > 1:
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        tgt = torch.where(targets[..., None] == vocab, logits, 0.0).sum(-1)
+    else:
+        tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
     loss = (lse - tgt).mean()
     return loss, {"loss": loss, "ppl": torch.exp(loss)}
 
@@ -401,8 +453,17 @@ def decode_step(cfg: LMConfig, params, cache: KVCache,
         h = L.rmsnorm(p["attn_norm"], x, cfg.norm_eps)
         q, k1, v1 = _qkv(cfg, p["attn"], h, positions)
         ck, cv = cache.k[i], cache.v[i]
-        ck.index_copy_(1, write, k1.to(ck.dtype))
-        cv.index_copy_(1, write, v1.to(cv.dtype))
+        if sharded():
+            # a DTensor's in-place index_copy_ into a sharded view of the
+            # cache relabels the view's layout without moving its data; a
+            # masked select written back keeps it (and reads and writes
+            # the whole cache, where index_copy_ writes one position)
+            at = (kv_pos == pos)[None, :, None, None]
+            ck.copy_(torch.where(at, k1.to(ck.dtype), ck))
+            cv.copy_(torch.where(at, v1.to(cv.dtype), cv))
+        else:
+            ck.index_copy_(1, write, k1.to(ck.dtype))
+            cv.index_copy_(1, write, v1.to(cv.dtype))
         attn = L.mha(q, ck, cv, masks[w], logit_cap=cfg.attn_logit_softcap)
         x = _attn_out_and_mlp(cfg, p, x, attn.reshape(b, 1, -1))
     cache.length.add_(1)
@@ -431,8 +492,9 @@ def prefill(cfg: LMConfig, params, tokens: torch.Tensor,
             x, k1, v1 = _block(cfg, p, x, positions, w, chunked)
         if ck is None:
             shape = (cfg.n_layers, b, max_len) + tuple(k1.shape[2:])
-            ck = torch.zeros(shape, dtype=k1.dtype, device=k1.device)
-            cv = torch.zeros(shape, dtype=k1.dtype, device=k1.device)
+            # new_zeros: a DTensor k1 (a sharded dry run) makes a DTensor
+            ck = k1.new_zeros(shape)
+            cv = k1.new_zeros(shape)
         ck[i, :, :s] = k1
         cv[i, :, :s] = v1.to(k1.dtype)
     logits = _head(cfg, params, x[:, -1])

@@ -957,3 +957,58 @@ def test_lm_smoke_loss_and_grads_on_the_card_match_the_cpu_copy(cuda):
         assert g.device.type == "cuda"
         err = float((g.cpu() - w).abs().max())
         assert err <= 1e-3 * float(w.abs().max().clamp(min=1e-30))
+
+
+def test_lm_smoke_adafactor_step_on_the_card_matches_the_cpu_copy(cuda):
+    """One ``make_train_step`` of gemma2-9b SMOKE with Adafactor (the full
+    CONFIG's optimizer) and remat on (f32, TF32 off): the loss on the card
+    at rtol 1e-4 of its CPU copy's, every new parameter within 5e-3 of its
+    leaf's largest update (the embedding's backward scatter-adds
+    atomically), no kernel of the port launched."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("gemma2-9b").smoke_config, remat=True,
+                              optimizer="adafactor")
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(2, 40)).astype(np.int32))
+    step, opt = api.make_train_step(cfg)
+    assert opt.name == "adafactor"
+    want, _, wm = step(params, opt.init(params), {"tokens": tokens})
+    pc = _to(params, cuda)
+    before = _kernel_counts()
+    got, st, m = step(pc, opt.init(pc), {"tokens": tokens.to(cuda)})
+    assert _kernel_counts() == before
+    torch.testing.assert_close(m["loss"].cpu(), wm["loss"], rtol=1e-4,
+                               atol=1e-5)
+    for g, w, p in zip(tree_leaves(got), tree_leaves(want),
+                       tree_leaves(params)):
+        assert g.device.type == "cuda"
+        upd = float((w - p).abs().max().clamp(min=1e-30))
+        assert float((g.cpu() - w).abs().max()) <= 5e-3 * upd
+    assert st["count"].device.type == "cuda"
+
+
+def test_host_mesh_on_the_card(cuda):
+    """``make_host_mesh()`` makes a one-rank NCCL group on the card and a
+    (1, 1) mesh over it; a DTensor placed by the sharding rules on it runs
+    a product on the card; the group is gone after."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import Spec, to_placements
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with make_host_mesh() as mesh:
+        assert mesh.device_type == "cuda"
+        assert tuple(mesh.shape) == (1, 1)
+        assert mesh.mesh_dim_names == ("data", "model")
+        x = torch.randn(8, 16, device=cuda)
+        dx = distribute_tensor(x, mesh, to_placements(Spec("data", "model"),
+                                                      mesh))
+        y = (dx @ dx.T).full_tensor()
+        assert y.device.type == "cuda"
+        torch.testing.assert_close(y, x @ x.T)
+    assert not dist.is_initialized()

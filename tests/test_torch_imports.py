@@ -78,3 +78,15 @@ def test_no_import_of_jax_or_reference_package(path):
     bad = [name for name in _imported_names(path)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_distribution_layer_and_the_dry_run_are_ported():
+    """The counterparts of ``repro.distributed`` and of ``repro.launch``'s
+    mesh, cost analysis, roofline, dry run and report are port modules
+    (each imported and checked for JAX above)."""
+    want = {"repro_torch.distributed.autoshard",
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.op_analysis", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun_lib", "repro_torch.launch.dryrun",
+            "repro_torch.launch.report"}
+    assert want <= set(_port_modules())
