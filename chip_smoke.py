@@ -45,7 +45,18 @@ block's messages (``[gnn]``: each kernel-7 call of a forward against its
 plain version, the segment sum's backward bit for bit, kernel 7 on a
 block timed in turns with ``torch.segment_reduce``, the f32 model on the
 card against its CPU copy, the reloaded checkpoint bit for bit, one step
-resumed and one profiled), builds a GIST1M-shaped index
+resumed and one profiled), trains the same config owner-computes
+(``[gnn_part]``: ``models/gnn_partitioned.py`` over 4 partitions of a
+mesh-like grid graph held on the card, each at ogb_products' per-chip shape
+on 256 chips, the halo exchange a transpose and each block's aggregate
+one kernel-7 call; each kernel-7 call of a forward against its plain
+version, the loss and every gradient against ``gnn_loss`` on the whole
+graph, the loss falling over AdamW steps, the step beside the whole
+graph's, one step profiled), runs the hillclimb
+(``python -m repro_torch.launch.hillclimb``) in a subprocess started with
+``[dryrun]``'s (``[hillclimb]``: four records ``ok``, the halo step's
+all-to-all bytes a chip, its collectives below the baseline's), builds a
+GIST1M-shaped index
 on the card (n = 1,000,000 x d = 960, l2, the paper's index settings),
 answers filtered batched queries at the paper's selectivities through
 ``NavixIndex.search_many``, makes the index int8-resident with
@@ -81,8 +92,8 @@ runtime guards watch phases that already run (``[guards]``): one
 program entry in ``[db]``'s and ``[serve]``'s steady traffic),
 ``[serve]`` under the in-flight guard of ``LaneBatch``, and both live
 services under the lock-order monitor.
-The host's data (the 1M mixture, ``[gnn]``'s graph) is made on two
-worker threads while the kernels build and the kernel phases run. Each
+The host's data (the 1M mixture, ``[gnn]``'s and ``[gnn_part]``'s
+graphs) is made on two worker threads while the kernels build and the kernel phases run. Each
 phase prints one line or two; a failed
 phase raises, so the script exits non-zero and prints no ``ok`` line. The
 last three lines are the card's name and power limit, a JSON line of
@@ -151,9 +162,12 @@ from repro_torch.kernels import (_build, distance_matrix,  # noqa: E402
                                  quantized_gather_distance, ref, segment_sum)
 from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import gnn, recsys  # noqa: E402
+from repro_torch.models.gnn_partitioned import (  # noqa: E402
+    partitioned_input_specs, partitioned_loss)
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import greedy_generate  # noqa: E402
 from repro_torch.training import loop as train_loop  # noqa: E402
+from repro_torch.training.optimizer import make_optimizer  # noqa: E402
 from repro_torch.launch.dryrun import MESHES  # noqa: E402
 
 # GIST1M (TEXMEX; the paper's Table 2): 1M vectors of width 960, l2
@@ -316,6 +330,22 @@ GNN_CHECK_SEEDS = 32
 # the card's first run differed by 1.3e-3 at most (median ~1.5e-4); a
 # wrong index or dtype is O(1)
 GNN_REL_TOL = 5e-3
+# [gnn_part]: meshgraphnet's full CONFIG, owner-computes
+# (models/gnn_partitioned.py, mesh=None) over GNN_PARTS partitions held on
+# the one card, each at the reference's per-chip shape of ogb_products on
+# GNN_PART_CHIPS chips (9,568 node and 241,638 edge slots, d_feat 100). The
+# graph is mesh-like, as the partitioned layout assumes: nodes on a grid of
+# GNN_PART_GRID (rows, columns), GNN_PARTS strips of whole columns (the
+# 184 x 208 grid gives 4 strips of 184 x 52 = 9,568 nodes), an edge from
+# every node within sqrt(GNN_PART_RADIUS2) grid steps: 24 in-edges inside
+# the grid, ogb_products' average is 25.3 (61,859,140 / 2,449,029)
+GNN_PART_SHAPE = "ogb_products"
+GNN_PART_CHIPS = 256
+GNN_PARTS = 4
+GNN_PART_GRID = (184, 208)
+GNN_PART_RADIUS2 = 8
+GNN_PART_STEPS = 3          # timed AdamW steps of each form, after a warm-up
+GNN_PART_LOSS_RTOL = 1e-4   # the partitioned loss against the whole graph's
 # [rank]: the ranking path of BST and DIEN at full CONFIG width
 RANK_ARCHS = ("bst", "dien")
 RANK_REQUESTS = 20          # serve_p99 requests a model
@@ -376,6 +406,16 @@ TRAIN_LM_LOSS_TOL = dict(rtol=1e-4, atol=1e-4)
 # enters this process), started before [build] and collected at the end
 DRYRUN_MESHES = (("single", None), ("one", TRAIN_LM_BATCH))
 DRYRUN_TIMEOUT_S = 900
+# [hillclimb]: ``python -m repro_torch.launch.hillclimb`` in a subprocess
+# started with [dryrun]'s: the halo-partitioned GNN train step must move
+# HILLCLIMB_HALO_A2A bytes of all-to-all a chip (45 exchanges: 15 blocks
+# forward, 15 in remat's recompute, 15 backward, of 256 partitions x 16
+# halo slots x d_hidden 128 in f32), fewer collective bytes than its
+# baseline
+HILLCLIMB_WHICH = "gnn,retrieval"
+HILLCLIMB_HALO_A2A = 45 * 256 * 16 * 128 * 4
+HILLCLIMB_HALO = "gnn/ogb_products HALO-PARTITIONED"
+HILLCLIMB_GNN_BASE = "gnn/ogb_products BASELINE"
 F32_SOURCE = "src/repro_torch/kernels/csrc/gather_distance.cu"
 INT8_SOURCE = "src/repro_torch/kernels/csrc/quantized_gather_distance.cu"
 TPU_KERNELS = "src/repro/kernels/gather_distance.py"
@@ -1756,6 +1796,269 @@ def phase_gnn(smi: str, graph) -> int:
     return launches
 
 
+def grid_graph(rows: int, cols: int, radius2: int, d_feat: int, d_edge: int,
+               out_dim: int, seed: int) -> dict:
+    """A mesh-like graph as numpy arrays (``gnn_forward``'s batch): node
+    (r, c) of a rows x cols grid is node c * rows + r (column-major, so a
+    strip of whole columns is a range of ids), with an edge into it from
+    every node within sqrt(``radius2``) grid steps. The edges come in an
+    order shuffled from ``seed``; node features, targets and each edge's
+    last feature are N(0, 1) draws from it, its first three the
+    displacement (dx, dy) and the distance. Every node is unmasked."""
+    rng = np.random.default_rng(seed)
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    r, c = r.reshape(rows, cols), c.reshape(rows, cols)
+    src, dst, feat = [], [], []
+    reach = int(np.sqrt(radius2))
+    for dy in range(-reach, reach + 1):
+        for dx in range(-reach, reach + 1):
+            if not 0 < dx * dx + dy * dy <= radius2:
+                continue
+            ok = ((r + dy >= 0) & (r + dy < rows) & (c + dx >= 0)
+                  & (c + dx < cols))
+            rr, cc = r[ok], c[ok]
+            dst.append(cc * rows + rr)
+            src.append((cc + dx) * rows + rr + dy)
+            feat.append(np.broadcast_to(
+                [dx, dy, np.sqrt(dx * dx + dy * dy)], (len(rr), 3)))
+    order = rng.permutation(sum(len(x) for x in src))
+    n = rows * cols
+    ef = np.concatenate(feat).astype(np.float32)[order]
+    ef = np.concatenate([ef, rng.normal(size=(len(ef), d_edge - 3))],
+                        axis=1).astype(np.float32)
+    return {"node_feats": rng.normal(size=(n, d_feat)).astype(np.float32),
+            "edge_src": np.concatenate(src).astype(np.int32)[order],
+            "edge_dst": np.concatenate(dst).astype(np.int32)[order],
+            "edge_feats": ef,
+            "node_targets": rng.normal(size=(n, out_dim)).astype(np.float32),
+            "node_mask": np.ones(n, bool)}
+
+
+def strip_partition(graph: dict, n_parts: int, nl: int,
+                    el: int) -> tuple[dict, int]:
+    """``(batch, S)``: a graph whose partitions are ranges of node ids
+    (``grid_graph``'s strips of whole columns: n / ``n_parts`` nodes each)
+    laid out as ``models.gnn_partitioned`` takes it, stacked [P, ...]:
+    ``nl`` node and ``el`` edge slots a partition (the rest padded: masked
+    nodes, -1 edges). Partition p owns its nodes and every edge into them;
+    an edge from a node q owns is read from the halo: the S slots of the
+    pair (q, p) hold the distinct such sources in id order, S the largest
+    any pair needs, so ``send_idx[q, p, s]`` is a node of q and the edge's
+    source is ``nl + q * S + s``."""
+    n = len(graph["node_feats"])
+    own = n // n_parts
+    if own * n_parts != n or own > nl:
+        raise ValueError(f"{n} nodes do not split into {n_parts} parts of "
+                         f"at most {nl}")
+    src, dst = graph["edge_src"], graph["edge_dst"]
+    p_dst, l_dst = np.divmod(dst, own)
+    p_src, l_src = np.divmod(src, own)
+    halo = p_src != p_dst
+    key = (p_dst[halo].astype(np.int64) * n_parts + p_src[halo]) * own \
+        + l_src[halo]
+    uniq, inv = np.unique(key, return_inverse=True)
+    pair, l_send = np.divmod(uniq, own)
+    first = np.searchsorted(pair, pair, side="left")
+    slot = np.arange(len(uniq)) - first
+    s = int(slot.max()) + 1 if len(uniq) else 1
+    send_idx = np.full((n_parts, n_parts, s), -1, np.int32)
+    recv, sender = np.divmod(pair, n_parts)
+    send_idx[sender, recv, slot] = l_send
+    es = l_src.astype(np.int32)
+    es[halo] = nl + p_src[halo] * s + slot[inv]
+
+    order = np.argsort(p_dst, kind="stable")
+    counts = np.bincount(p_dst, minlength=n_parts)
+    if counts.max() > el:
+        raise ValueError(f"a partition has {counts.max()} edges > {el}")
+    pos = np.arange(len(dst)) - np.repeat(np.cumsum(counts) - counts, counts)
+    out = {"edge_src": np.full((n_parts, el), -1, np.int32),
+           "edge_dst": np.full((n_parts, el), -1, np.int32),
+           "edge_feats": np.zeros((n_parts, el,
+                                   graph["edge_feats"].shape[1]), np.float32)}
+    rows = (p_dst[order], pos)
+    out["edge_src"][rows] = es[order]
+    out["edge_dst"][rows] = l_dst[order]
+    out["edge_feats"][rows] = graph["edge_feats"][order]
+    for k in ("node_feats", "node_targets", "node_mask"):
+        v = graph[k].reshape((n_parts, own) + graph[k].shape[1:])
+        out[k] = np.zeros((n_parts, nl) + v.shape[2:], v.dtype)
+        out[k][:, :own] = v
+    out["send_idx"] = send_idx
+    return out, s
+
+
+def gnn_part_graph() -> dict:
+    """[gnn_part]'s host graph (``grid_graph`` at GNN_PART_GRID, seed 2)
+    and its GNN_PARTS strips (``strip_partition`` at the per-chip slots of
+    GNN_PART_SHAPE on GNN_PART_CHIPS chips)."""
+    arch = get_arch(GNN_ARCH)
+    shape = arch.shape(GNN_PART_SHAPE)
+    cfg = model_api.resolve_config(arch.config, shape)
+    specs = partitioned_input_specs(cfg, shape, GNN_PART_CHIPS)
+    nl, el = specs["node_feats"][0][1], specs["edge_src"][0][1]
+    whole = grid_graph(*GNN_PART_GRID, GNN_PART_RADIUS2,
+                       shape["d_feat"], cfg.in_edge_dim, cfg.out_dim, seed=2)
+    parts, s = strip_partition(whole, GNN_PARTS, nl, el)
+    return {"whole": whole, "parts": parts, "halo": s, "nl": nl, "el": el}
+
+
+def _train_steps(loss_fn, opt, params, batch, steps: int) -> tuple:
+    """A warm-up AdamW step, then ``steps`` timed ones (wall ms, synced):
+    ``(params, losses, ms)``, the losses before each update."""
+    state = opt.init(params)
+    losses, ms = [], []
+    for i in range(steps + 1):
+        sync()
+        t0 = time.perf_counter()
+        loss, _, grads = model_api.value_and_grad(loss_fn, params, batch)
+        params, state = opt.update(grads, state, params)
+        sync()
+        losses.append(float(loss))
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return params, losses, ms
+
+
+def phase_gnn_part(smi: str, made) -> int:
+    """MeshGraphNet's full CONFIG (15 blocks, d_hidden 128, bf16 compute,
+    remat, AdamW) trained owner-computes on GNN_PARTS partitions held on
+    the card (``partitioned_loss(cfg)``, mesh=None: the halo exchange a
+    transpose, each block's aggregate one kernel-7 call over all the
+    partitions' edges). Checks: every kernel-7 call of a forward against
+    its plain version; the partitioned loss and every gradient against
+    ``gnn.gnn_loss`` on the same graph unpartitioned, same parameters
+    (loss at GNN_PART_LOSS_RTOL, each leaf within GNN_REL_TOL of its
+    largest value: the gathers' backward adds atomically); the loss falls
+    over the steps; kernel 7's launches = steps x blocks x 2 (remat) x its
+    launches a call, and no other kernel's. Timed: each form's step
+    (median of GNN_PART_STEPS after a warm-up); one partitioned step
+    profiled. ``made`` is ``_timed_call(gnn_part_graph)``'s result.
+    Returns the partitioned path's kernel-7 launches."""
+    lap = (stages := Stages()).lap
+    arch = get_arch(GNN_ARCH)
+    shape = arch.shape(GNN_PART_SHAPE)
+    cfg = model_api.resolve_config(arch.config, shape)
+    g, made_s = made
+    nl, el, s, n_parts = g["nl"], g["el"], g["halo"], GNN_PARTS
+    batch = {k: torch.from_numpy(v).cuda() for k, v in g["parts"].items()}
+    whole = {k: torch.from_numpy(v).cuda() for k, v in g["whole"].items()}
+    n_real = int(whole["node_mask"].sum())
+    e_real = int((batch["edge_dst"] >= 0).sum())
+    params = gnn.init_gnn(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+    loss_fn = partitioned_loss(cfg)
+    whole_fn = model_api.model_api(cfg).loss
+    lap("to the card")
+
+    # 1. every kernel-7 call of a forward against its plain version
+    calls = []
+    real = ops._segment_sum
+
+    def spy(messages, dst_sorted, n):
+        out = real(messages, dst_sorted, n)
+        calls.append((messages.detach(), dst_sorted, n, out))
+        return out
+
+    with torch.no_grad(), mock.patch.object(ops, "_segment_sum", spy):
+        loss_fn(params, batch)
+    check(len(calls) == cfg.n_layers
+          and all(c[2] == n_parts * nl for c in calls),
+          f"[gnn_part] a forward made {len(calls)} segment sums")
+    k7_err = max(_check_close(out, ref.csr_segment_sum(m, d, n), SEGMENT_TOL,
+                              f"[gnn_part] block {i}'s aggregate")
+                 for i, (m, d, n, out) in enumerate(calls))
+    calls.clear()
+    lap("kernel-7 checks")
+    # 2. the partitioned loss and gradients against the whole graph's
+    loss_p, _, grads_p = model_api.value_and_grad(loss_fn, params, batch)
+    loss_w, _, grads_w = model_api.value_and_grad(whole_fn, params, whole)
+    loss_err = abs(float(loss_p) - float(loss_w)) / abs(float(loss_w))
+    errs = {".".join(path): _rel_err(a, b) for (path, a), b in zip(
+        tree_flatten_with_path(grads_p)[0], tree_leaves(grads_w))}
+    worst = max(errs, key=errs.get)
+    check(loss_err <= GNN_PART_LOSS_RTOL and errs[worst] <= GNN_REL_TOL,
+          f"[gnn_part] partitioned vs whole graph: loss {float(loss_p)} vs "
+          f"{float(loss_w)} (rtol {GNN_PART_LOSS_RTOL}), gradients {errs} "
+          f"(limit {GNN_REL_TOL})")
+    del grads_p, grads_w
+    lap("vs the whole graph")
+    # 3. the main path: AdamW steps of the partitioned loss, counted
+    opt = make_optimizer(cfg.optimizer)
+    per_call = segment_sum.launches(n_parts * el, cfg.d_hidden)
+    per_step = cfg.n_layers * (2 if cfg.remat else 1) * per_call
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trained, losses, part_ms = _train_steps(loss_fn, opt, params, batch,
+                                            GNN_PART_STEPS)
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches = launched["csr_segment_sum"]
+    check(launches == (GNN_PART_STEPS + 1) * per_step
+          and all(v == 0 for k, v in launched.items()
+                  if k != "csr_segment_sum"),
+          f"[gnn_part] launches {launched}; expected csr_segment_sum "
+          f"{(GNN_PART_STEPS + 1) * per_step} and nothing else")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[gnn_part] the loss did not fall: {losses}")
+    lap("partitioned steps")
+    _, whole_losses, whole_ms = _train_steps(whole_fn, opt, params, whole,
+                                             GNN_PART_STEPS)
+    lap("whole-graph steps")
+    # 4. one partitioned step profiled
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _train_steps(loss_fn, opt, trained, batch, 0)
+    ops_ms = device_ops(prof.key_averages())
+    busy = sum(t for _, t, _ in ops_ms)
+    k7_ms = sum(t for k, t, _ in ops_ms if "segment_span_kernel" in k
+                or "segment_fixup_kernel" in k)
+    check(busy > 0 and k7_ms > 0,
+          f"[gnn_part] the profiler saw {busy} ms of device time, kernel 7 "
+          f"{k7_ms}")
+    lap("profiled step")
+    e_all, n_all, d = n_parts * el, n_parts * nl, cfg.d_hidden
+    b_s, by = bound_s(4 * e_all * d + 4 * e_all + 4 * n_all * d, e_all * d)
+    calls_per_step = per_step // per_call
+    top = sorted(ops_ms, key=lambda o: -o[1])[:4]
+    print(f"[gnn_part] {arch.arch_id} CONFIG ({cfg.n_layers} blocks, "
+          f"d_hidden {d}, compute {cfg.compute_dtype}, remat {cfg.remat}, "
+          f"{cfg.optimizer}) owner-computes, mesh=None: {n_parts} partitions "
+          f"on one card at {GNN_PART_SHAPE}'s per-chip shape on "
+          f"{GNN_PART_CHIPS} chips ({nl:,} node and {el:,} edge slots, "
+          f"d_feat {cfg.in_node_dim}); grid {GNN_PART_GRID[0]} x "
+          f"{GNN_PART_GRID[1]}, radius^2 {GNN_PART_RADIUS2}: {n_real:,} "
+          f"nodes, {e_real:,} edges ({e_real / n_real:.2f} a node), "
+          f"{n_parts} strips, halo S = {s} slots a pair (P * S = "
+          f"{n_parts * s:,} received rows a partition); made in "
+          f"{made_s:.1f}s on a host worker thread", flush=True)
+    print(f"[gnn_part] checks: {cfg.n_layers} kernel-7 calls of a forward "
+          f"(E {e_all:,}, n {n_all:,}) == plain version (max abs err "
+          f"{k7_err:.3e}, rtol = atol = {SEGMENT_TOL}); partitioned vs the "
+          f"whole graph through gnn_loss: loss {float(loss_p):.6f} vs "
+          f"{float(loss_w):.6f} (rel {loss_err:.3e}, limit "
+          f"{GNN_PART_LOSS_RTOL}), gradients at most {errs[worst]:.3e} "
+          f"({worst}; median {np.median(list(errs.values())):.3e}; limit "
+          f"{GNN_REL_TOL}); losses "
+          + ", ".join(f"{x:.5f}" for x in losses) + " (falling)", flush=True)
+    print(f"[gnn_part] step ms partitioned "
+          + ", ".join(f"{t:.1f}" for t in part_ms)
+          + f" (median {np.median(part_ms):.2f}) vs whole graph "
+          + ", ".join(f"{t:.1f}" for t in whole_ms)
+          + f" (median {np.median(whole_ms):.2f}; ratio "
+          f"{np.median(part_ms) / np.median(whole_ms):.3f}); peak "
+          f"{peak:,} B; csr_segment_sum {launches} launches = "
+          f"{GNN_PART_STEPS + 1} steps x {per_step} ({cfg.n_layers} blocks x "
+          f"2 (remat) x {per_call} a call), no other kernel; one step "
+          f"profiled: device busy {busy:.3f} ms, kernel 7 {k7_ms:.3f} ms "
+          f"({100 * k7_ms / busy:.1f}%) for {calls_per_step} calls, bound "
+          f"{b_s * 1e3 * calls_per_step:.3f} ms ({by}); top: "
+          + "; ".join(f"{k[:40]} {t:.3f} ms x{c}" for k, t, c in top)
+          + f"; {smi}; phase {stages.line()}", flush=True)
+    return launches
+
+
 def phase_recsys() -> tuple[int, dict]:
     """The recsys retrieval step of BST at full width: its parameters made
     on the card, then RETRIEVAL_REQUESTS requests at ``retrieval_cand``,
@@ -2433,9 +2736,16 @@ class DryRun:
             self.procs[mesh] = (subprocess.Popen(
                 cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
                 log)
+        # the hillclimb's four records, written to hillclimb.json
+        self.hill_json = self.dir / "hillclimb.json"
+        log = open(self.dir / "hillclimb.log", "w")
+        self.hill = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.hillclimb", "--which",
+             HILLCLIMB_WHICH, "--out", str(self.hill_json)], stdout=log,
+            stderr=subprocess.STDOUT, env=env, cwd=ROOT), log)
 
     def stop(self) -> None:
-        for proc, log in self.procs.values():
+        for proc, log in (*self.procs.values(), self.hill):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -2499,6 +2809,57 @@ class DryRun:
               f"{measured['peak']:,} B vs estimated {est:,} B (ratio "
               f"{measured['peak'] / est:.3f}); [dryrun] {wall:.1f} s from "
               f"its start; {smi}", flush=True)
+
+    def collect_hillclimb(self, smi: str) -> None:
+        """``[hillclimb]``: waits for the hillclimb's process, checks its
+        rc and four records ``ok``, the halo step's all-to-all bytes a chip
+        (HILLCLIMB_HALO_A2A) and its collectives below the baseline's, and
+        prints each variant's line."""
+        from repro_torch.launch.hillclimb import _line
+
+        proc, log = self.hill
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - self.t0)
+        try:
+            rc = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"[hillclimb] its run passed "
+                               f"{DRYRUN_TIMEOUT_S} s") from None
+        log.close()
+        out = (self.dir / "hillclimb.log").read_text()
+        tail = out[-3000:]
+        took = "; ".join(ln.strip("[]") for ln in out.splitlines()
+                         if " done in " in ln)
+        check(rc == 0 and self.hill_json.exists(),
+              f"[hillclimb] rc {rc}; its output ends: {tail}")
+        recs = {r["cell"]: r for r in json.loads(self.hill_json.read_text())}
+        bad = {k: (r.get("op"), r.get("error", "")[:500])
+               for k, r in recs.items() if r["status"] != "ok"}
+        check(len(recs) == 4 and not bad,
+              f"[hillclimb] records {list(recs)}, failed {bad}; {tail}")
+        halo = recs[HILLCLIMB_HALO]["roofline"]
+        base = recs[HILLCLIMB_GNN_BASE]["roofline"]
+        a2a = halo["coll_breakdown"]["all-to-all"]
+        check(a2a == HILLCLIMB_HALO_A2A
+              and halo["coll_bytes_per_chip"] < base["coll_bytes_per_chip"],
+              f"[hillclimb] halo all-to-all {a2a} B a chip (want "
+              f"{HILLCLIMB_HALO_A2A}), collectives "
+              f"{halo['coll_bytes_per_chip']} vs the baseline's "
+              f"{base['coll_bytes_per_chip']}")
+        for rec in recs.values():
+            r = rec["roofline"]
+            coll = ", ".join(f"{k} {v:,}" for k, v in
+                             r["coll_breakdown"].items() if v)
+            print(f"[hillclimb] {_line(rec)}; a chip {r['flops_per_chip']:.4e}"
+                  f" FLOPs, {r['bytes_per_chip']:.4e} B, collectives {coll}",
+                  flush=True)
+        print(f"[hillclimb] checks: 4 records ok; halo all-to-all {a2a:,} B a "
+              f"chip == 45 x 256 x 16 x 128 x 4; collectives a chip "
+              f"{halo['coll_bytes_per_chip']:.4e} B vs the baseline's "
+              f"{base['coll_bytes_per_chip']:.4e} B (ratio "
+              f"{halo['coll_bytes_per_chip'] / base['coll_bytes_per_chip']:.2e});"
+              f" in its process: {took}; collected "
+              f"{time.perf_counter() - self.t0:.1f} s from its start; {smi}",
+              flush=True)
 
 
 def _timed_call(fn, *args) -> tuple:
@@ -3819,6 +4180,7 @@ def main() -> int:
     with ThreadPoolExecutor(2) as host, CompileCounter() as cc:
         gist_data = host.submit(_timed_call, make_data, N)
         gnn_data = host.submit(_timed_call, gnn_graph)
+        part_data = host.submit(_timed_call, gnn_part_graph)
         timed("nvcc", phase_build_kernels)
         cc.mark("steady")
         timed("floor", phase_launch_floor)
@@ -3851,6 +4213,12 @@ def main() -> int:
         gnn_launches = timed("gnn", phase_gnn, smi, graph)
         kernels["csr_segment_sum"]["launches"] += gnn_launches
         del graph
+        torch.cuda.empty_cache()
+        # the partitioned GNN path, its counts read in the phase around its
+        # training steps
+        part_launches = timed("gnn_part", phase_gnn_part, smi,
+                              timed("gnn_part_graph", part_data.result))
+        kernels["csr_segment_sum"]["launches"] += part_launches
         torch.cuda.empty_cache()
 
         masks = make_masks(len(X), SELECTIVITIES)
@@ -3915,6 +4283,7 @@ def main() -> int:
         timed("ckpt", phase_ckpt, *ckpt_state, Q)
         del ckpt_state
         timed("dryrun", dry.collect, trained, smi)
+        timed("hillclimb", dry.collect_hillclimb, smi)
         dry.stop()
     late_nvcc = {p: k["nvcc"] for p, k in cc.kinds.items()
                  if p != "warmup" and k.get("nvcc")}
@@ -3945,9 +4314,9 @@ def main() -> int:
           f"{kernels['quantized_distance_matrix_wgmma']['launches']} on its "
           f"tensor-core path, through their ops entries (their whole path); "
           f"csr_segment_sum {kernels['csr_segment_sum']['launches']}: "
-          f"{kernels['csr_segment_sum']['launches'] - gnn_launches} through "
-          f"its ops entry and {gnn_launches} in [gnn]'s training steps",
-          flush=True)
+          f"{kernels['csr_segment_sum']['launches'] - gnn_launches - part_launches}"
+          f" through its ops entry, {gnn_launches} in [gnn]'s training steps "
+          f"and {part_launches} in [gnn_part]'s", flush=True)
     print(f"[launches] gather_distance_batch: {build_launches} in the build "
           f"({build_spread} of them spread), "
           f"{kernels['gather_distance_batch']['launches'] - build_launches} "

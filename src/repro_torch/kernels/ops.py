@@ -151,6 +151,6 @@ class SegmentSum(torch.autograd.Function):
     def backward(ctx, grad_out: torch.Tensor):
         (dst,) = ctx.saved_tensors
         ok = (dst >= 0) & (dst < ctx.n)
-        g = grad_out[torch.where(ok, dst, 0).long()]
+        g = ref.take_rows(grad_out, torch.where(ok, dst, 0).long())
         g = torch.where(ok[:, None], g, 0)
         return g.to(ctx.msg_dtype), None, None

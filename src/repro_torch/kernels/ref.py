@@ -103,9 +103,66 @@ def csr_segment_sum(messages: torch.Tensor, dst_sorted: torch.Tensor,
     Entries with a destination outside ``[0, n)`` (-1 padding, the
     sentinel) are dropped: they are summed into a row n that is sliced
     off, as the reference's ``segment_sum`` over n + 1 segments does.
+
+    ``DTensor`` messages (the dry run's) are summed by :func:`_sharded`.
     """
+    if type(messages) is not torch.Tensor and _is_dtensor(messages):
+        return _sharded(messages, dst_sorted, n)
     safe = torch.where((dst_sorted >= 0) & (dst_sorted < n), dst_sorted, n)
-    out = torch.zeros((n + 1, messages.shape[1]), dtype=torch.float32,
-                      device=messages.device)
+    out = messages.new_zeros((n + 1, messages.shape[1]), dtype=torch.float32)
     out.index_add_(0, safe.long(), messages.to(torch.float32))
     return out[:n]
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``: the rows of ``table`` [n, d] at int64 ``idx`` [E].
+    Where ``idx`` is a ``DTensor`` (the dry run's edges, laid out over the
+    chips), each chip takes its own indices' rows from the table gathered
+    whole (GSPMD's replicated nodes), the rows laid out as ``idx`` is; the
+    table's gradient comes back ``Partial``, each chip's rows' part.
+    (``DTensor`` 2.11 has no rule for an index sharded over two mesh
+    dims.)"""
+    if type(idx) is torch.Tensor or not _is_dtensor(idx):
+        return table[idx]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = idx.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if isinstance(table, DTensor):
+        whole = table.redistribute(mesh, rep).to_local(
+            grad_placements=[Partial()] * mesh.ndim)
+    else:
+        whole = table
+    rows = whole[idx.to_local()]
+    shape = torch.Size((idx.shape[0],) + tuple(table.shape[1:]))
+    stride = tuple(int(torch.Size(shape[i + 1:]).numel())
+                   for i in range(len(shape)))
+    return DTensor.from_local(rows, mesh, idx.placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _sharded(messages, dst_sorted, n: int):
+    """The segment sum of ``DTensor`` messages, as GSPMD partitions a
+    scatter-add: each chip sums its own rows into an [n, d] aggregate,
+    and the aggregate is ``Partial`` (summed over the chips) on each mesh
+    dim that splits the rows, Shard(k) where the messages are (a feature
+    dim), else as the messages are. The destinations are laid out as the
+    rows first. (``DTensor`` has no rule for ``index_add_``.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = messages.device_mesh
+    rows = [Shard(0) if p == Shard(0) else Replicate()
+            for p in messages.placements]
+    if list(dst_sorted.placements) != rows:
+        dst_sorted = dst_sorted.redistribute(mesh, rows)
+    local = csr_segment_sum(messages.to_local(), dst_sorted.to_local(), n)
+    out = [Partial() if p == Shard(0) else p for p in messages.placements]
+    d = messages.shape[1]
+    return DTensor.from_local(local, mesh, out, run_check=False,
+                              shape=torch.Size((n, d)), stride=(d, 1))

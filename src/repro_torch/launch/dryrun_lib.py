@@ -161,29 +161,21 @@ def build_cell(arch: ArchDef, shape: ShapeSpec, mesh, smoke: bool = False):
     raise ValueError(shape.kind)
 
 
-def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str,
-             overrides: dict | None = None, smoke: bool = False) -> dict:
-    """One cell's record: ``status`` ``ok`` (with the memory and roofline
-    figures), ``skip`` (a documented skip) or ``fail`` (the error and the
-    operator that raised: dry-run failures are findings). ``overrides``
-    replaces some of the shape's sizes (its batch, its ``seq_len``);
-    ``smoke`` runs the arch's smoke config."""
+def measure(name: str, build, mesh, model_flops: float) -> dict:
+    """The record of one step run once on ``mesh``: ``build()`` gives
+    ``(step_fn, args)`` (under the activation hints), and the step runs
+    under ``DTensor``'s implicit replication, ``CommDebugMode`` and the op
+    counter. ``status`` ``ok`` with the memory and roofline figures, or
+    ``fail`` with the error and the operator that raised (dry-run
+    failures are findings)."""
     from torch.distributed.tensor.experimental import implicit_replication
     from torch.distributed.tensor.debug import CommDebugMode
 
-    arch = get_arch(arch_id)
-    shape = arch.shape(shape_name)
-    if overrides:
-        shape = dataclasses.replace(shape,
-                                    params={**shape.params, **overrides})
-    cell = f"{arch_id}{'-smoke' if smoke else ''}/{shape_name}/{mesh_name}"
-    if shape.skip_reason:
-        return {"cell": cell, "status": "skip", "reason": shape.skip_reason}
     t0 = time.perf_counter()
     counter = OpCounter()
     try:
         with activation_sharding(mesh):
-            fn, args = build_cell(arch, shape, mesh, smoke)
+            fn, args = build()
             t_place = time.perf_counter() - t0
             counter.track(args)
             with implicit_replication(), CommDebugMode() as comm, counter:
@@ -192,28 +184,46 @@ def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str,
         t_run = time.perf_counter() - t0 - t_place
         cost = counter.cost
         chips = math.prod(mesh_axes(mesh).values())
-        cfg = arch.smoke_config if smoke else arch.config
-        roof = rl.analyze(cell, cost, chips,
-                          model_flops=model_flops(cfg, shape))
+        roof = rl.analyze(name, cost, chips, model_flops=model_flops)
         return {
-            "cell": cell, "status": "ok",
+            "cell": name, "status": "ok",
             "place_s": round(t_place, 2), "run_s": round(t_run, 2),
-            "shape": dict(shape.params),
             "memory_analysis": {
                 "argument_size_in_bytes": int(cost.arg_bytes),
                 "temp_size_in_bytes": int(cost.peak_bytes - cost.arg_bytes),
                 "peak_size_in_bytes": int(cost.peak_bytes)},
             "comm_counts": {str(k): v for k, v in
                             comm.get_comm_counts().items()},
-            "kernels": KERNELS_NOTE,
             "roofline": roof.to_dict(),
         }
     except Exception as e:  # noqa: BLE001 -- dry-run failures are findings
-        return {"cell": cell, "status": "fail",
+        return {"cell": name, "status": "fail",
                 "op": counter.failed_op or counter.last_op,
                 "error": f"{type(e).__name__}: {e}"[:2000],
                 "trace": traceback.format_exc()[-6000:],
                 "elapsed_s": round(time.perf_counter() - t0, 2)}
+
+
+def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str,
+             overrides: dict | None = None, smoke: bool = False) -> dict:
+    """One cell's record (:func:`measure`'s, with the shape and a note of
+    the kernels), or ``skip`` (a documented skip). ``overrides`` replaces
+    some of the shape's sizes (its batch, its ``seq_len``); ``smoke`` runs
+    the arch's smoke config."""
+    arch = get_arch(arch_id)
+    shape = arch.shape(shape_name)
+    if overrides:
+        shape = dataclasses.replace(shape,
+                                    params={**shape.params, **overrides})
+    cell = f"{arch_id}{'-smoke' if smoke else ''}/{shape_name}/{mesh_name}"
+    if shape.skip_reason:
+        return {"cell": cell, "status": "skip", "reason": shape.skip_reason}
+    cfg = arch.smoke_config if smoke else arch.config
+    rec = measure(cell, lambda: build_cell(arch, shape, mesh, smoke), mesh,
+                  model_flops(cfg, shape))
+    if rec["status"] == "ok":
+        rec.update(shape=dict(shape.params), kernels=KERNELS_NOTE)
+    return rec
 
 
 def all_cells() -> list[tuple[str, str]]:

@@ -29,6 +29,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.config.base import GNNConfig
 from repro_torch.distributed.autoshard import constrain
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import _is_dtensor, take_rows
 from repro_torch.kernels.segment_sum import PAD_SENTINEL
 from repro_torch.models import layers as L
 from repro_torch.models.recsys import _carry
@@ -105,6 +106,29 @@ def _layer(p, i: int):
     return p[i]
 
 
+def _by_destination(key: torch.Tensor, *edges: torch.Tensor):
+    """``edges`` in the stable order of ``key``. Edges that are
+    ``DTensor``s (the dry run's, laid out over the chips) are ordered
+    within each chip's shard: a chip sums its own edges into a partial
+    aggregate (``kernels/ref.py``'s ``_sharded``), so only their local
+    order matters, and a global sort would gather every edge."""
+    if not _is_dtensor(key):
+        order = torch.sort(key, stable=True).indices
+        return tuple(x[order] for x in edges)
+    from torch.distributed.tensor import DTensor
+
+    mesh, place = key.device_mesh, key.placements
+    order = torch.sort(key.to_local(), stable=True).indices
+    out = []
+    for x in edges:
+        if x.placements != place:
+            x = x.redistribute(mesh, place)
+        out.append(DTensor.from_local(x.to_local()[order], mesh, place,
+                                      run_check=False, shape=x.shape,
+                                      stride=x.stride()))
+    return tuple(out)
+
+
 def gnn_forward(cfg: GNNConfig, params, batch) -> torch.Tensor:
     """batch: node_feats [N, Fn], edge_src / edge_dst int32[E] (-1 pad),
     edge_feats [E, Fe]. Returns per-node predictions f32[N, out_dim].
@@ -127,10 +151,10 @@ def gnn_forward(cfg: GNNConfig, params, batch) -> torch.Tensor:
     n = nf.shape[0]
     e_ok = (src >= 0) & (dst >= 0)
     # destination order, padding last: what kernel 7 takes
-    order = torch.sort(torch.where(e_ok, dst, PAD_SENTINEL),
-                       stable=True).indices
-    src, dst, e_ok = src[order], dst[order], e_ok[order]
-    ef = batch["edge_feats"][order].to(cdt)
+    src, dst, e_ok, ef = _by_destination(
+        torch.where(e_ok, dst, PAD_SENTINEL), src, dst, e_ok,
+        batch["edge_feats"])
+    ef = ef.to(cdt)
     s_safe = src.clamp(min=0).long()
     d_gather = dst.clamp(min=0).long()
     d_seg = torch.where(e_ok, dst, -1)      # -1: dropped by the segment sum
@@ -148,7 +172,8 @@ def gnn_forward(cfg: GNNConfig, params, batch) -> torch.Tensor:
         # the node-state carry shards over dp so the saved activations of
         # the blocks stay sharded
         h = constrain(h, "dp", None)
-        msg_in = torch.cat([e, h[s_safe], h[d_gather]], dim=-1)
+        msg_in = torch.cat([e, take_rows(h, s_safe), take_rows(h, d_gather)],
+                           dim=-1)
         e = e + _mlp(_layer(params["edge_mlp"], i), msg_in)
         agg = ops.csr_segment_sum(torch.where(e_ok[:, None], e, 0), d_seg, n)
         if cnt is not None:

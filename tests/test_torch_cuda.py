@@ -1012,3 +1012,68 @@ def test_host_mesh_on_the_card(cuda):
         assert y.device.type == "cuda"
         torch.testing.assert_close(y, x @ x.T)
     assert not dist.is_initialized()
+
+
+def _grid_parts(cfg):
+    """``chip_smoke.py``'s grid graph (16 x 12, radius^2 8) whole and in 4
+    strips of 4 columns (48 node and 1,152 edge slots a partition)."""
+    import chip_smoke
+
+    whole = chip_smoke.grid_graph(12, 16, 8, cfg.in_node_dim,
+                                  cfg.in_edge_dim, cfg.out_dim, seed=5)
+    parts, _ = chip_smoke.strip_partition(whole, 4, nl=48, el=1152)
+    return ({k: torch.from_numpy(v) for k, v in whole.items()},
+            {k: torch.from_numpy(v) for k, v in parts.items()})
+
+
+def test_partitioned_gnn_on_the_card_matches_the_cpu_copy(cuda):
+    """MeshGraphNet SMOKE (f32, remat on) owner-computes over 4 stacked
+    partitions on the card (``partitioned_loss(cfg)``, mesh=None): every
+    block's aggregate is one kernel-7 call (two launches a block with the
+    recompute, each call's launches as ``segment_sum.launches`` says), the
+    loss at rtol 1e-4 of its CPU copy's and every gradient within 5e-3 of
+    its leaf's largest value (the gathers' backward adds atomically)."""
+    import dataclasses
+    from repro_torch.models import gnn, gnn_partitioned as gp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("meshgraphnet").smoke_config,
+                              remat=True)
+    _, parts = _grid_parts(cfg)
+    params = gnn.init_gnn(cfg, torch.Generator().manual_seed(0), "cpu")
+    fn = gp.partitioned_loss(cfg)
+    want, _, wg = api.value_and_grad(fn, params, parts)
+    before = segment_sum.LAUNCHES
+    loss, _, grads = api.value_and_grad(fn, _to(params, cuda),
+                                        _to(parts, cuda))
+    e = parts["edge_dst"].numel()
+    assert segment_sum.LAUNCHES - before == \
+        2 * cfg.n_layers * segment_sum.launches(e, cfg.d_hidden)
+    torch.testing.assert_close(loss.cpu(), want, rtol=1e-4, atol=1e-5)
+    for g, w in zip(tree_leaves(grads), tree_leaves(wg)):
+        assert g.device.type == "cuda"
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 5e-3 * float(w.abs().max().clamp(min=1e-30))
+
+
+def test_partitioned_gnn_on_the_card_equals_the_whole_graph(cuda):
+    """On the card, the partitioned loss and gradients equal ``gnn_loss``
+    on the same graph unpartitioned: the loss at rtol 1e-4, every gradient
+    within 5e-3 of its leaf's largest value."""
+    import dataclasses
+    from repro_torch.models import gnn, gnn_partitioned as gp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("meshgraphnet").smoke_config,
+                              remat=True)
+    whole, parts = _grid_parts(cfg)
+    params = gnn.init_gnn(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          cuda)
+    loss, _, grads = api.value_and_grad(gp.partitioned_loss(cfg), params,
+                                        _to(parts, cuda))
+    want, _, wg = api.value_and_grad(api.model_api(cfg).loss, params,
+                                     _to(whole, cuda))
+    torch.testing.assert_close(loss, want, rtol=1e-4, atol=1e-5)
+    for g, w in zip(tree_leaves(grads), tree_leaves(wg)):
+        err = float((g - w).abs().max())
+        assert err <= 5e-3 * float(w.abs().max().clamp(min=1e-30))

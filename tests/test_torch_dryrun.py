@@ -253,3 +253,53 @@ def test_cli_and_report(tmp_path, capsys):
     assert "[cached]" in capsys.readouterr().out
     table = report.render(report.load(str(tmp_path)), "one_chip_1x1")
     assert "| qwen1.5-0.5b/decode_32k | ok |" in table
+
+
+@pytest.mark.parametrize("shape_name", [
+    s.name for s in dryrun_lib.get_arch("meshgraphnet").shapes])
+def test_meshgraphnet_smoke_cells_run_on_a_fake_mesh(shape_name):
+    """Edge-parallel: each chip sums its own edges' messages into a
+    ``Partial`` aggregate, so a chip's FLOPs are at least its share of the
+    model's."""
+    with fake_mesh((2, 2), ("data", "model")) as mesh:
+        rec = dryrun_lib.run_cell("meshgraphnet", shape_name, mesh, "2x2",
+                                  smoke=True)
+    assert rec["status"] == "ok", (rec.get("op"), rec.get("error"))
+    r = rec["roofline"]
+    assert r["flops_per_chip"] >= r["model_flops"] / 4 > 0
+    assert r["coll_breakdown"]["all-reduce"] + \
+        r["coll_breakdown"]["reduce-scatter"] > 0
+
+
+def test_meshgraphnet_full_cell_on_the_production_mesh():
+    """ogb_products at full CONFIG on 16x16 is ``ok``, at least a chip's
+    share of the model's FLOPs."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    with make_production_mesh() as mesh:
+        rec = dryrun_lib.run_cell("meshgraphnet", "ogb_products", mesh,
+                                  "single_pod_16x16")
+    assert rec["status"] == "ok", (rec.get("op"), rec.get("error"))
+    r = rec["roofline"]
+    assert r["flops_per_chip"] >= r["model_flops"] / 256 > 0
+
+
+def test_segment_sum_of_dtensors_equals_the_plain_version():
+    """The plain segment sum of ``DTensor`` messages on a gloo mesh of one
+    rank: the local sums, marked ``Partial``, equal the plain version's bit
+    for bit."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_host_mesh
+
+    gen = torch.Generator().manual_seed(0)
+    msgs = torch.randn((50, 6), generator=gen)
+    dst = torch.sort(torch.randint(-1, 12, (50,), generator=gen)).values
+    want = ref.csr_segment_sum(msgs, dst, 12)
+    with make_host_mesh(device="cpu") as mesh:
+        got = ref.csr_segment_sum(
+            distribute_tensor(msgs, mesh, [Shard(0), Shard(0)]),
+            distribute_tensor(dst, mesh, [Shard(0), Shard(0)]), 12)
+        assert tuple(got.shape) == (12, 6)
+        assert torch.equal(got.full_tensor(), want)
