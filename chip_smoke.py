@@ -34,10 +34,18 @@ full config through ``make_train_step`` with Adafactor and remat
 (``[train_lm]``: 1 x 4,096 random tokens, a warm-up and 3 timed steps,
 one profiled; the loss on the batch falls; the full width cut to 2
 layers in f32, one step against its CPU copy; no kernel of the port
-launched), dry-runs that train step (``[dryrun]``: in two subprocesses
-started before the index build, on the 256-rank production mesh and on
-one card at ``[train_lm]``'s batch, each record ``ok``, the one-card
-roofline printed beside the measured step), trains
+launched), serves and trains granite-moe-3b-a800m's full config
+(``[moe]``: 32 layers, bf16, 40 experts top-8; 8 prompts of 512 tokens
+and one of 8,192, then 4 x 4,096 tokens through ``make_train_step`` with
+AdamW; decode against prefill with every routed pair kept; the 2-layer
+f32 model's routing tables, logits, tokens and AdamW step against its CPU
+copy; kimi-k2 SMOKE with Adafactor against its CPU copy; AdamW's peak on
+the expert leaf), dry-runs six cells (``[dryrun]``: in two subprocesses
+started before the index build, both train steps on the 256-rank
+production mesh and on one card at their batches, DIEN's and gemma-7b's
+train cells on 16x16, each record ``ok``, the one-card rooflines printed
+beside the measured steps, ``[moe]``'s peak within 10% of its
+estimate), trains
 MeshGraphNet's full
 config on Reddit-regime minibatch blocks sampled from a power-law graph
 through the port's checkpointed training loop, kernel 7 aggregating every
@@ -167,7 +175,8 @@ from repro_torch.models.gnn_partitioned import (  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serving import greedy_generate  # noqa: E402
 from repro_torch.training import loop as train_loop  # noqa: E402
-from repro_torch.training.optimizer import make_optimizer  # noqa: E402
+from repro_torch.training.optimizer import (SPLIT_BYTES,  # noqa: E402
+                                            make_optimizer)
 from repro_torch.launch.dryrun import MESHES  # noqa: E402
 
 # GIST1M (TEXMEX; the paper's Table 2): 1M vectors of width 960, l2
@@ -387,7 +396,8 @@ LM_MEM_SLACK = 64 << 20     # bytes the phase may leave allocated
 # sequences to the one a card holds
 TRAIN_LM_SHAPE = "train_4k"
 TRAIN_LM_BATCH = 1
-TRAIN_LM_STEPS = 3          # timed, after one warm-up step
+TRAIN_LM_STEPS = 3          # timed, after one warm-up step; then one
+                            # profiled
 # Adafactor's learning rate: its default, an absolute 1e-2 a step on
 # weights of RMS ~1/sqrt(3584) = 0.017, raised the loss on the batch in 4
 # steps (13.178 -> 15.633); 1e-4, 1e-3 and 3e-3 each lowered it
@@ -401,10 +411,59 @@ TRAIN_LM_CHECK = dict(n_layers=2, param_dtype="float32",
 TRAIN_LM_CHECK_SHAPE = (1, 128)
 TRAIN_LM_REL_TOL = 5e-3
 TRAIN_LM_LOSS_TOL = dict(rtol=1e-4, atol=1e-4)
-# [dryrun]: the dry run of [train_lm]'s cell on the production mesh and on
-# one card, each in a subprocess of its own (the fake process group never
-# enters this process), started before [build] and collected at the end
-DRYRUN_MESHES = (("single", None), ("one", TRAIN_LM_BATCH))
+# [moe]: granite-moe-3b-a800m's full CONFIG (32 layers, bf16, 40 experts
+# top-8, 3.30 B parameters) served through greedy_generate at [lm]'s (a)
+# and at one 8,192-token prompt (b: chunked_mha; cut from prefill_32k's 32
+# sequences of 32,768 tokens for the clock), then trained through
+# make_train_step with AdamW, the CONFIG's optimizer, at its default lr on
+# MOE_TRAIN_BATCH x train_4k's 4,096 random tokens: the largest batch of
+# {1, 2, 4, 8} whose one-card dry run stays under 70 GB (4: 54,179,694,384
+# B; 8: 75,367,499,344 B), cut from train_4k's 256 sequences
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_REQUESTS = {"a": (8, 512), "b": (1, 8192)}
+MOE_TRAIN_SHAPE = "train_4k"
+MOE_TRAIN_BATCH = 4
+MOE_TRAIN_STEPS = 3         # timed, after one warm-up step; then one
+                            # profiled
+# check 1 (decode against prefill) generates with a capacity factor of
+# n_experts / top_k: every expert then has a slot for every token, so the
+# prefill keeps every routed pair as a decode step of <= 8 tokens does (8
+# slots an expert). At the CONFIG's 1.25 a prefill drops the pairs beyond
+# an expert's capacity, the last tokens first, and the two differ by O(1)
+MOE_CHECK = dict(n_layers=2, param_dtype="float32", compute_dtype="float32")
+MOE_CHECK_SHAPE = (2, 128)
+MOE_PEAK_TOL = 0.10         # the training peak against the dry run's
+# AdamW's first update is lr g / (|g| + eps), eps 1e-8: its slope in g is
+# lr eps / (|g| + eps)^2, so below |g| ~ 1e-7 the card's and the CPU's
+# last-bit gradient differences move an entry by up to ~lr (on an H100,
+# held everywhere: 0.65 of wq's largest update). The step is held to
+# TRAIN_LM_REL_TOL of each leaf's largest update where |g| >=
+# MOE_NEAR_ZERO (there a difference of 1e-9 moves it < 1e-5 lr), and the
+# gradient itself, the new first moment (1 - b1) g, everywhere
+MOE_NEAR_ZERO = 1e-6
+# kimi-k2 SMOKE on the card against its CPU copy: forward, loss and one
+# Adafactor step (its CONFIG's optimizer), for the shared expert
+MOE_SMOKE_ARCH = "kimi-k2-1t-a32b"
+MOE_SMOKE_SHAPE = (2, 64)
+# AdamW on granite's expert leaf wi: its first 8 layers (2.01 GB in f32,
+# past SPLIT_BYTES: still updated a layer at a time) are where the
+# whole-leaf arithmetic fits beside them, and the two are compared bit
+# for bit
+ADAMW_BIT_LAYERS = 8
+# [dryrun]: dry runs on the production mesh (16x16) and on one card, in
+# DRYRUN_LANES subprocesses that run their cells one after another (the
+# fake process group never enters this process), started before [build]
+# and collected at the end: [train_lm]'s and [moe]'s train cells on both
+# meshes, DIEN's and gemma-7b's on 16x16; (arch, shape, mesh, batch)
+DRYRUN_CELLS = (
+    (LM_ARCH, TRAIN_LM_SHAPE, "single", None),
+    (LM_ARCH, TRAIN_LM_SHAPE, "one", TRAIN_LM_BATCH),
+    (MOE_ARCH, MOE_TRAIN_SHAPE, "single", None),
+    (MOE_ARCH, MOE_TRAIN_SHAPE, "one", MOE_TRAIN_BATCH),
+    ("dien", "train_batch", "single", None),
+    ("gemma-7b", "train_4k", "single", None),
+)
+DRYRUN_LANES = 2
 DRYRUN_TIMEOUT_S = 900
 # [hillclimb]: ``python -m repro_torch.launch.hillclimb`` in a subprocess
 # started with [dryrun]'s: the halo-partitioned GNN train step must move
@@ -590,18 +649,21 @@ def kernel_entry(name: str, max_abs: float, timing: tuple,
             "library_ms": library_ms}
 
 
-def device_ops(averages) -> list[tuple[str, float, int]]:
-    """(name, device ms, count) of each device op (kernel, copy, fill) in
-    a torch.profiler run's ``key_averages()`` (taken once: on a pass of
-    ~63,000 launches each call costs many seconds of host time). Only
-    device events are read: a CPU op's own device time repeats that of the
-    kernels it launched."""
+def device_ops(prof) -> list[tuple[str, float, int]]:
+    """(name, device ms, count) of each device op (kernel, copy, fill) of
+    a torch.profiler run, summed from its raw events (``key_averages()``
+    builds an object an event: on a step of ~55,000 launches that costs
+    ~14 s of host time). Only device events are read: a CPU op's own
+    device time repeats that of the kernels it launched."""
     from torch.autograd import DeviceType
 
-    return [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in averages
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    acc: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            tc = acc.setdefault(e.name(), [0.0, 0])
+            tc[0] += e.duration_ns() / 1e6
+            tc[1] += 1
+    return [(k, t, c) for k, (t, c) in acc.items()]
 
 
 def print_ptxas(name: str) -> None:
@@ -1735,7 +1797,7 @@ def phase_gnn(smi: str, graph) -> int:
         sync()
         prof_ms = (time.perf_counter() - t0) * 1e3
     lap("profiled step")
-    ops_ms = device_ops(prof.key_averages())
+    ops_ms = device_ops(prof)
     busy = sum(t for _, t, _ in ops_ms)
     k7_ms = sum(t for k, t, _ in ops_ms if "segment_span_kernel" in k
                 or "segment_fixup_kernel" in k)
@@ -2010,7 +2072,7 @@ def phase_gnn_part(smi: str, made) -> int:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _train_steps(loss_fn, opt, trained, batch, 0)
-    ops_ms = device_ops(prof.key_averages())
+    ops_ms = device_ops(prof)
     busy = sum(t for _, t, _ in ops_ms)
     k7_ms = sum(t for k, t, _ in ops_ms if "segment_span_kernel" in k
                 or "segment_fixup_kernel" in k)
@@ -2158,7 +2220,7 @@ def _profile_request(step, params, batch) -> None:
         step(params, batch)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops_ms = device_ops(prof.key_averages())
+    ops_ms = device_ops(prof)
     busy_ms = sum(t for _, t, _ in ops_ms)
     check(busy_ms > 0, "the profiler saw no device time in a request")
     top = sorted(ops_ms, key=lambda o: -o[1])[:6]
@@ -2295,7 +2357,7 @@ def _rank_model(arch_id: str, reuse: dict, smi: str) -> dict:
         prof_ms = (time.perf_counter() - t0) * 1e3
     del params, opt_state, train
     torch.cuda.empty_cache()
-    ops_ms = device_ops(prof.key_averages())
+    ops_ms = device_ops(prof)
     busy = sum(t for _, t, _ in ops_ms)
     check(busy > 0, f"[rank] {arch_id}: the profiler saw no device time")
     top = sorted(ops_ms, key=lambda o: -o[1])[:5]
@@ -2363,12 +2425,15 @@ def phase_rank(smi: str, reuse: dict) -> None:
           + "; no kernel of the port launched (every count 0)", flush=True)
 
 
-def _lm_request(cfg, params, name: str, b: int, s: int, smi: str) -> dict:
-    """One request shape of ``[lm]``: a warm-up, then ``greedy_generate``
-    of LM_NEW tokens timed on the stream (CUDA events at its steps), then
-    check 1 (the last decode step against a prefill of the prompt and the
-    new tokens), a decode step under CUDA's sync debug mode "error" (it
-    reads nothing back to the host) and one decode step profiled."""
+def _lm_request(cfg, params, name: str, b: int, s: int, smi: str,
+                tag: str = "[lm]", check_cfg=None) -> dict:
+    """One request shape of ``[lm]`` (or of ``tag``'s phase): a warm-up,
+    then ``greedy_generate`` of LM_NEW tokens timed on the stream (CUDA
+    events at its steps), then check 1 (the last decode step against a
+    prefill of the prompt and the new tokens; where ``check_cfg`` is
+    given, both of a generation under that config), a decode step under
+    CUDA's sync debug mode "error" (it reads nothing back to the host) and
+    one decode step profiled."""
     from torch.profiler import ProfilerActivity, profile
 
     lap = (stages := Stages()).lap
@@ -2394,27 +2459,32 @@ def _lm_request(cfg, params, name: str, b: int, s: int, smi: str) -> dict:
     decode_ms = [events[i].elapsed_time(events[i + 1])
                  for i in range(1, len(events) - 1)]
     check(tokens.shape == (b, LM_NEW) and len(decode_ms) == LM_NEW,
-          f"[lm] ({name}) tokens {tokens.shape}, {len(decode_ms)} steps")
+          f"{tag} ({name}) tokens {tokens.shape}, {len(decode_ms)} steps")
     check(bool(torch.isfinite(last).all()),
-          f"[lm] ({name}) non-finite decode logits")
+          f"{tag} ({name}) non-finite decode logits")
     lap("generate")
+    if check_cfg is not None:
+        tokens, last = greedy_generate(check_cfg, params, prompt, LM_NEW,
+                                       return_logits=True)
+        lap("generate for check 1")
+    ccfg = check_cfg or cfg
 
     # check 1: a prefill of the prompt and every new token, whose last
     # position is the last decode step's (which fed the 32nd token)
     full = torch.from_numpy(np.concatenate([prompt, tokens], axis=1)
                             ).to("cuda")
-    with torch.no_grad():
-        cache, ref_logits = transformer.prefill(cfg, params, full,
-                                                max_len=s + LM_NEW + 2)
+    with torch.no_grad():      # room for the decode steps below
+        cache, ref_logits = transformer.prefill(ccfg, params, full,
+                                                max_len=s + LM_NEW + 3)
     check(bool(torch.isfinite(ref_logits).all()),
-          f"[lm] ({name}) non-finite prefill logits")
+          f"{tag} ({name}) non-finite prefill logits")
     diff = (last - ref_logits).abs()
     max_d = float(diff.max())
     top2 = torch.topk(ref_logits, 2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > 2 * diff.max(dim=-1).values
     same = last.argmax(-1) == ref_logits.argmax(-1)
     check(max_d <= LM_DECODE_TOL and bool(same[decided].all()),
-          f"[lm] ({name}) decode vs prefill: max |d| {max_d} (limit "
+          f"{tag} ({name}) decode vs prefill: max |d| {max_d} (limit "
           f"{LM_DECODE_TOL}), argmax equal {same.tolist()} where decided "
           f"{decided.tolist()}")
     lap("check prefill")
@@ -2425,41 +2495,64 @@ def _lm_request(cfg, params, name: str, b: int, s: int, smi: str) -> dict:
         sync()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            cache, _ = transformer.decode_step(cfg, params, cache, tok)
+            cache, _ = transformer.decode_step(ccfg, params, cache, tok)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            cache, _ = transformer.decode_step(cfg, params, cache, tok)
+            cache, _ = transformer.decode_step(ccfg, params, cache, tok)
             sync()
             prof_ms = (time.perf_counter() - t0) * 1e3
+        if cfg.moe:       # one more step, its routing tables kept
+            _, tables = _routed(transformer.decode_step, ccfg, params,
+                                cache, tok)
     del cache, full, ref_logits, last
-    ops_ms = device_ops(prof.key_averages())
+    ops_ms = device_ops(prof)
     busy = sum(t for _, t, _ in ops_ms)
-    check(busy > 0, f"[lm] ({name}) the profiler saw no device time")
+    check(busy > 0, f"{tag} ({name}) the profiler saw no device time")
     top = sorted(ops_ms, key=lambda o: -o[1])[:4]
     lap("decode checks, profile")
     # a decode step reads every parameter (the tied head reads the whole
-    # embedding) and the whole cache of max_len positions, K and V
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    # embedding) but the experts its tokens' routed pairs do not reach,
+    # counted in each layer from a decode step's routing tables, and the
+    # whole cache of max_len positions, K and V; it multiplies by the
+    # active parameters
+    n_params = (cfg.n_active_params() if cfg.moe else
+                sum(t.numel() for t in tree_leaves(params)))
     cache_bytes = (2 * cfg.n_layers * b * max_len * cfg.n_kv_heads
                    * cfg.head_dim * torch.finfo(getattr(
                        torch, cfg.compute_dtype)).bits // 8)
     step_bytes = tree_bytes(params) + cache_bytes
+    reach = ""
+    if cfg.moe:
+        check(len(tables) == cfg.n_layers,
+              f"{tag} ({name}) {len(tables)} routing tables in a decode "
+              f"step of {cfg.n_layers} layers")
+        reached = sum(int((t >= 0).any(dim=2).any(dim=0).sum())
+                      for t in tables)
+        mlp = params["blocks"]["mlp"]
+        per = sum(mlp[k][0, 0].numel() * mlp[k].element_size()
+                  for k in ("wi", "wo"))
+        total = cfg.n_layers * cfg.moe.n_experts
+        step_bytes -= (total - reached) * per
+        reach = (f", the experts of {reached} of {total} (layer, expert) "
+                 f"pairs that a decode step's routed pairs reached")
     bound, by = bound_s(step_bytes, 0.0, 2.0 * n_params * b,
                         TARGET.peak_bf16_flops)
     p50, p99 = np.percentile(decode_ms, 50), np.percentile(decode_ms, 99)
-    print(f"[lm] ({name}) B = {b}, {s:,}-token prompts, {LM_NEW} new "
+    print(f"{tag} ({name}) B = {b}, {s:,}-token prompts, {LM_NEW} new "
           f"tokens, {'chunked_mha' if s >= 8192 else 'one-pass mha'} "
           f"prefill: greedy_generate wall {wall_s * 1e3:.1f} ms; prefill "
           f"{prefill_ms:.2f} ms; decode a token p50 {p50:.3f} / p99 "
           f"{p99:.3f} ms (min {min(decode_ms):.3f}, max {max(decode_ms):.3f})"
           f" vs bound {bound * 1e3:.3f} ms ({by}: {step_bytes:,} B of "
-          f"parameters and a {max_len:,}-position cache at "
+          f"parameters{reach} and a {max_len:,}-position cache at "
           f"{TARGET.hbm_bandwidth:.3e} B/s); decode vs prefill of the "
-          f"{s + LM_NEW:,} tokens: max |d| {max_d:.4f} (limit "
+          f"{s + LM_NEW:,} tokens"
+          + (" (every routed pair kept)" if check_cfg is not None else "")
+          + f": max |d| {max_d:.4f} (limit "
           f"{LM_DECODE_TOL}), argmax equal in {int(same.sum())} of {b} rows"
           f" ({int(decided.sum())} decided); no host sync in a decode step; "
           f"one decode step profiled: wall {prof_ms:.2f} ms, device busy "
@@ -2558,19 +2651,35 @@ def phase_lm(smi: str) -> None:
           + f"; {stages.line()}", flush=True)
 
 
+def _profiled_step(step, params, opt_state, batch) -> tuple:
+    """One more train step under torch.profiler, the device's activity
+    only (a full-width LM step runs ~133,000 host ops, whose events would
+    cost the profiler tens of seconds): ``(params, opt_state, metrics,
+    wall ms, the profiler)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        sync()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    return params, opt_state, m, prof_ms, prof
+
+
 def phase_train_lm(smi: str) -> dict:
     """LM training at full width: gemma2-9b's CONFIG (9.24 B parameters,
     bf16, remat) through ``make_train_step`` with Adafactor on one batch of
-    random tokens, TRAIN_LM_BATCH x train_4k's 4,096: a warm-up step, then
-    TRAIN_LM_STEPS timed, then one profiled. Checks: every loss finite; the
-    loss on the batch after the steps below the first step's; the full
+    random tokens, TRAIN_LM_BATCH x train_4k's 4,096: a warm-up step,
+    then TRAIN_LM_STEPS timed, then one profiled (a steady-state step:
+    the warm-up's first-step costs read ~6 points less busy). Checks:
+    every loss finite; the loss on the batch after the steps below the
+    first step's; the full
     width cut to 2 layers in f32, one step on the card against its CPU
     copy (every leaf within TRAIN_LM_REL_TOL of its largest update); no
     kernel of the port launched; the allocator back within LM_MEM_SLACK.
     Returns the measured numbers, which [dryrun] holds its roofline
     against."""
-    from torch.profiler import ProfilerActivity, profile
-
     t_phase = time.perf_counter()
     lap = (stages := Stages()).lap
     before = launch_counts()
@@ -2592,7 +2701,7 @@ def phase_train_lm(smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     lap("init")
 
-    params, opt_state, m = step(params, opt_state, batch)       # warm-up
+    params, opt_state, m = step(params, opt_state, batch)
     losses = [float(m["loss"])]
     lap("warm-up")
     step_ms = []
@@ -2603,17 +2712,12 @@ def phase_train_lm(smi: str) -> dict:
         sync()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
+    lap("steps")
+    params, opt_state, m, prof_ms, prof = _profiled_step(
+        step, params, opt_state, batch)
+    losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
     after = float(model_api.make_eval_step(cfg)(params, batch)["loss"])
-    lap("steps")
-    # the device's activity only: a step runs ~133,000 host ops, whose
-    # events would cost the profiler tens of seconds
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sync()
-        t0 = time.perf_counter()
-        params, opt_state, _ = step(params, opt_state, batch)
-        sync()
-        prof_ms = (time.perf_counter() - t0) * 1e3
     del params, opt_state, m
     torch.cuda.empty_cache()
     lap("profiled step")
@@ -2635,7 +2739,7 @@ def phase_train_lm(smi: str) -> dict:
     with ThreadPoolExecutor(1) as pool:
         cpu_step = pool.submit(step_s, params_h, opt_s.init(params_h),
                                {"tokens": tok["tokens"].cpu()})
-        ops_ms = device_ops(prof.key_averages())
+        ops_ms = device_ops(prof)
         new_h, _, m_h = cpu_step.result()
     busy = sum(t for _, t, _ in ops_ms)
     check(busy > 0, "[train_lm] the profiler saw no device time")
@@ -2676,7 +2780,8 @@ def phase_train_lm(smi: str) -> dict:
           + ", ".join(f"{t:.1f}" for t in step_ms)
           + f" (median {med:.2f}); peak memory {peak:,} B; model FLOPs "
           f"6 N D = {model_flops:.4e}, MFU {100 * mfu:.2f}% of the "
-          f"{TARGET.peak_bf16_flops:.3e} bf16 peak; one step profiled: wall "
+          f"{TARGET.peak_bf16_flops:.3e} bf16 peak; a step after them "
+          f"profiled: wall "
           f"{prof_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / prof_ms:.1f}%), "
           f"{sum(c for _, _, c in ops_ms)} device ops; top: "
@@ -2711,31 +2816,440 @@ def phase_train_lm(smi: str) -> dict:
             "model_flops": model_flops, "mfu": mfu, "batch": b, "seq": s}
 
 
+_ROUTES = threading.local()
+_DISPATCH = transformer.moe_dispatch
+
+
+def _routing_spy(router, xg, moe):
+    """``moe_dispatch``, which also keeps each call's token table on the
+    host where the calling thread collects them (:func:`_routed`)."""
+    slot_tok, slot_gate = _DISPATCH(router, xg, moe)
+    tables = getattr(_ROUTES, "tables", None)
+    if tables is not None:
+        tables.append(slot_tok.cpu())
+    return slot_tok, slot_gate
+
+
+def _routed(fn, *args, **kwargs) -> tuple:
+    """``(fn(...), the routing tables of its moe_dispatch calls)`` on this
+    thread (under :func:`_routing_spy`)."""
+    _ROUTES.tables = []
+    try:
+        return fn(*args, **kwargs), _ROUTES.tables
+    finally:
+        _ROUTES.tables = None
+
+
+def _moe_check_run(cfg, params, prompt: np.ndarray, train_tokens) -> dict:
+    """[moe]'s check model on one device: the prefill's logits, a greedy
+    generation (tokens, the last decode step's logits) with the routing
+    tables of both, and one step of ``make_train_step`` (its new
+    parameters and loss). ``params`` is left as it was."""
+    dev = params["embed"].device
+    tokens = torch.from_numpy(prompt).to(dev)
+    with torch.no_grad():
+        (_, pre), routes = _routed(transformer.prefill, cfg, params, tokens)
+    (toks, last), more = _routed(greedy_generate, cfg, params, prompt,
+                                 LM_CHECK_NEW, return_logits=True)
+    step, opt = model_api.make_train_step(cfg)
+    new, state, m = step(params, opt.init(params),
+                         {"tokens": train_tokens.to(dev)})
+    return {"prefill": pre, "tokens": toks, "last": last,
+            "routes": routes + more, "new": new, "moment": state["m"],
+            "loss": float(m["loss"])}
+
+
+def _leaf_errs(new_c, new_h, old_h) -> dict[str, float]:
+    """Each leaf's largest |card - CPU| over its largest update on the CPU,
+    compared on the card a leaf at a time."""
+    errs = {}
+    for (path, got), want, old in zip(tree_flatten_with_path(new_c)[0],
+                                      tree_leaves(new_h), tree_leaves(old_h)):
+        want, old = want.to(got.device), old.to(got.device)
+        upd = (want - old).abs().max().clamp(min=1e-30)
+        errs[".".join(path)] = float((got - want).abs().max() / upd)
+    return errs
+
+
+def _adamw_errs(card: dict, host: dict, old_h) -> tuple[dict, int]:
+    """AdamW's first step on the card against its CPU copy: for each leaf
+    the larger of its gradient's error (the new first moment's, over its
+    largest) and its step's (over its largest update, where the gradient
+    is at least MOE_NEAR_ZERO); and how many entries are below that."""
+    errs, n_small = {}, 0
+    moments = tree_leaves(host["moment"])
+    for (path, mc), mh, got, want, old in zip(
+            tree_flatten_with_path(card["moment"])[0], moments,
+            tree_leaves(card["new"]), tree_leaves(host["new"]),
+            tree_leaves(old_h)):
+        mh, want, old = (t.to(mc.device) for t in (mh, want, old))
+        g_err = (mc - mh).abs().max() / mh.abs().max().clamp(min=1e-30)
+        big = mh.abs() >= (1 - 0.9) * MOE_NEAR_ZERO
+        upd = (want - old).abs().max().clamp(min=1e-30)
+        p_err = ((got - want).abs() * big).max() / upd
+        errs[".".join(path)] = float(max(g_err, p_err))
+        n_small += int((~big).sum())
+    return errs, n_small
+
+
+def _same_routes(card: list, cpu: list, what: str) -> None:
+    differ = [i for i, (a, b) in enumerate(zip(card, cpu))
+              if not torch.equal(a, b)]
+    check(len(card) == len(cpu) > 0 and not differ,
+          f"[moe] {what}: the routing tables of the card and of its CPU "
+          f"copy differ in calls {differ} of {len(card)} (vs {len(cpu)})")
+
+
+def _moe_smoke_kimi() -> str:
+    """kimi-k2 SMOKE (a shared expert beside 8 routed, top-2) on the card
+    against its CPU copy: the forward's logits and routing tables, the
+    loss, one Adafactor step (kimi's CONFIG optimizer) of
+    ``make_train_step``. Returns its report."""
+    cfg = dataclasses.replace(get_arch(MOE_SMOKE_ARCH).smoke_config,
+                              optimizer="adafactor")
+    params_c = model_api.model_api(cfg).init(
+        torch.Generator(device="cuda").manual_seed(2), "cuda")
+    params_h = _to_cpu(params_c)
+    tok = torch.from_numpy(np.random.default_rng(303).integers(
+        0, cfg.vocab_size, size=MOE_SMOKE_SHAPE).astype(np.int32))
+    out = {}
+    for dev, params in (("cuda", params_c), ("cpu", params_h)):
+        with torch.no_grad():
+            logits, routes = _routed(transformer.lm_forward, cfg, params,
+                                     tok.to(dev))
+        step, opt = model_api.make_train_step(cfg)
+        new, _, m = step(params, opt.init(params), {"tokens": tok.to(dev)})
+        out[dev] = (logits, routes, new, float(m["loss"]))
+    (lc, rc, nc, loss_c), (lh, rh, nh, loss_h) = out["cuda"], out["cpu"]
+    _same_routes(rc, rh, f"{MOE_SMOKE_ARCH} SMOKE forward")
+    err = float((lc.cpu() - lh).abs().max())
+    check(torch.allclose(lc.cpu(), lh, **LM_CHECK_TOL)
+          and np.isclose(loss_c, loss_h, **TRAIN_LM_LOSS_TOL),
+          f"[moe] {MOE_SMOKE_ARCH} SMOKE: logits max abs err {err}, loss "
+          f"{loss_c} vs {loss_h}")
+    errs = _leaf_errs(nc, nh, params_h)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= TRAIN_LM_REL_TOL,
+          f"[moe] {MOE_SMOKE_ARCH} SMOKE: one Adafactor step, card vs CPU "
+          f"copy: {errs} of each leaf's largest update")
+    return (f"{MOE_SMOKE_ARCH} SMOKE ({cfg.n_layers} layers, "
+            f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
+            f"{cfg.moe.n_shared_experts} shared, f32) on "
+            f"{MOE_SMOKE_SHAPE[0]} x {MOE_SMOKE_SHAPE[1]} tokens: routing "
+            f"tables equal ({len(rc)} calls), logits max abs err {err:.3e}, "
+            f"loss |d| {abs(loss_c - loss_h):.3e}, one Adafactor step at "
+            f"most {errs[worst]:.3e} of a leaf's largest update ({worst})")
+
+
+def _adamw_peak(shape, layers: int | None = None):
+    """AdamW's update of a stacked bf16 leaf of ``shape`` (f32 moments, its
+    first ``layers`` layers if given) on the card, twice: by the
+    whole-leaf arithmetic and by ``training.optimizer``. Returns (the
+    whole-leaf peak above the leaf, its gradient and moments, or None where
+    it ran out of memory; the optimizer's; whether the new leaves are
+    equal bit for bit)."""
+    lr, b1, b2, eps, wd = 1e-3, 0.9, 0.999, 1e-8, 0.01
+    if layers is not None:
+        shape = (layers,) + tuple(shape[1:])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    g = (torch.randn(shape, generator=gen, device="cuda") * 1e-3
+         ).to(torch.bfloat16)
+    m = torch.zeros(shape, device="cuda")
+    v = torch.zeros(shape, device="cuda")
+    cf = torch.ones((), device="cuda")
+    torch.cuda.empty_cache()
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    def whole_leaf():                # its temporaries die with its frame
+        g32 = g.to(torch.float32)
+        m1 = b1 * m + (1 - b1) * g32
+        v1 = b2 * v + (1 - b2) * g32 * g32
+        mhat = m1 / (1 - b1 ** cf)
+        vhat = v1 / (1 - b2 ** cf)
+        step = lr * (mhat / (torch.sqrt(vhat) + eps)
+                     + wd * p.to(torch.float32))
+        return (p.to(torch.float32) - step).to(p.dtype)
+
+    try:
+        want = whole_leaf()
+        sync()
+        old = torch.cuda.max_memory_allocated() - base
+    except torch.cuda.OutOfMemoryError:
+        want, old = None, None
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got, _ = make_optimizer("adamw", lr).update(
+        {"w": g}, {"m": {"w": m}, "v": {"w": v},
+                   "count": torch.zeros((), dtype=torch.int32,
+                                        device="cuda")}, {"w": p})
+    sync()
+    new = torch.cuda.max_memory_allocated() - base
+    same = want is not None and torch.equal(got["w"], want)
+    del p, g, m, v, got, want
+    torch.cuda.empty_cache()
+    return old, new, same
+
+
+def _adamw_leaf_peaks(shape) -> str:
+    """AdamW's update of granite's stacked expert leaf ``wi`` (``shape``)
+    on the card: the peak the whole-leaf arithmetic and the layer-at-a-time
+    update (``training.optimizer``) each add above the leaf, its gradient
+    and moments; and on its first ADAMW_BIT_LAYERS layers, which the
+    optimizer still updates a layer at a time and where the whole-leaf
+    arithmetic fits, the new leaves equal bit for bit. Returns its
+    report."""
+    old, new, _ = _adamw_peak(shape)
+    part = (ADAMW_BIT_LAYERS,) + tuple(shape[1:])
+    check(4 * int(np.prod(part)) > SPLIT_BYTES,
+          f"[moe] a {list(part)} leaf is updated whole, not a layer at a "
+          f"time")
+    old_p, new_p, same = _adamw_peak(shape, ADAMW_BIT_LAYERS)
+    check(same, f"[moe] AdamW a layer at a time on a {list(part)} leaf "
+          f"differs from the whole-leaf arithmetic on the card")
+    return (f"AdamW on a {list(shape)} bf16 leaf (granite's expert wi): "
+            f"the whole-leaf arithmetic adds "
+            + (f"{old:,} B" if old is not None else "out of memory")
+            + f" at its peak, a layer at a time {new:,} B (the new leaf "
+            f"among them); on its first {ADAMW_BIT_LAYERS} layers "
+            f"{old_p:,} B vs {new_p:,} B, the new leaves bit for bit the "
+            f"same")
+
+
+def phase_moe(smi: str) -> dict:
+    """The MoE family on the card: granite-moe-3b-a800m's full CONFIG
+    (32 layers, bf16, 40 experts top-8, drawn on the card through
+    ``model_api``) serves MOE_REQUESTS through ``greedy_generate``
+    (:func:`_lm_request`; check 1 with every routed pair kept), then
+    trains through ``make_train_step`` with AdamW at MOE_TRAIN_BATCH x
+    4,096 tokens: a warm-up step, then MOE_TRAIN_STEPS timed, then one
+    profiled. Check 2: the full width cut to 2 layers in f32 on the card
+    against its CPU copy (which runs on a worker thread while the card
+    trains): the routing tables equal, the prefill's and the last decode
+    step's logits and the greedy tokens, one AdamW step (each leaf within
+    TRAIN_LM_REL_TOL of its largest gradient and update, the update where
+    the gradient passes MOE_NEAR_ZERO). Check 3: the loss on the
+    batch falls. Check 4: no kernel of the port launches. Check 5: the
+    allocator returns within LM_MEM_SLACK. kimi-k2 SMOKE against its CPU
+    copy (:func:`_moe_smoke_kimi`). Returns the training numbers, which
+    [dryrun] holds against its one-card estimate (check 6)."""
+    t_phase = time.perf_counter()
+    lap = (stages := Stages()).lap
+    before = launch_counts()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    arch = get_arch(MOE_ARCH)
+    cfg = arch.config
+    moe = cfg.moe
+    with mock.patch.object(transformer, "moe_dispatch", _routing_spy), \
+            ThreadPoolExecutor(2) as pool:
+        # check 2's model: the card's run, then its CPU copy's on a worker
+        # thread while the card trains (device-bound; serving is host-bound,
+        # and its decode times would read the contention)
+        small = dataclasses.replace(cfg, **MOE_CHECK)
+        params_c = model_api.model_api(small).init(
+            torch.Generator(device="cuda").manual_seed(1), "cuda")
+        params_h = _to_cpu(params_c)
+        prompt = np.random.default_rng(302).integers(
+            0, cfg.vocab_size, size=MOE_CHECK_SHAPE).astype(np.int32)
+        train_tok = torch.from_numpy(np.random.default_rng(304).integers(
+            0, cfg.vocab_size, size=TRAIN_LM_CHECK_SHAPE).astype(np.int32))
+        card = _moe_check_run(small, params_c, prompt, train_tok)
+        del params_c
+        lap("check, card")
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model_api.model_api(cfg).init(
+            torch.Generator(device="cuda").manual_seed(0), "cuda")
+        sync()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        nbytes = tree_bytes(params)
+        lap("init")
+        keep_all = dataclasses.replace(cfg, moe=dataclasses.replace(
+            moe, capacity_factor=moe.n_experts / moe.top_k))
+        done = {}
+        for name, (b, s) in MOE_REQUESTS.items():
+            done[name] = _lm_request(cfg, params, name, b, s, smi,
+                                     tag="[moe]", check_cfg=keep_all)
+            torch.cuda.empty_cache()
+            lap(f"request ({name})")
+        serve_peak = torch.cuda.max_memory_allocated()
+        cpu_run = pool.submit(_moe_check_run, small, params_h, prompt,
+                              train_tok)
+
+        # training: AdamW, the CONFIG's optimizer, at its default lr
+        shape = arch.shape(MOE_TRAIN_SHAPE)
+        b, s = MOE_TRAIN_BATCH, shape["seq_len"]
+        gen = torch.Generator(device="cuda").manual_seed(401)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int32)}
+        step, opt = model_api.make_train_step(cfg)
+        opt_state = opt.init(params)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses = [float(m["loss"])]
+        lap("train warm-up")
+        step_ms = []
+        for _ in range(MOE_TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        lap("train steps")
+        params, opt_state, m, prof_ms, prof = _profiled_step(
+            step, params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        ops_ms = device_ops(prof)
+        peak = torch.cuda.max_memory_allocated()
+        after = float(model_api.make_eval_step(cfg)(params, batch)["loss"])
+        del params, opt_state, m, batch
+        torch.cuda.empty_cache()
+        lap("train profiled step")
+        adamw_peaks = _adamw_leaf_peaks(
+            model_api.abstract_params(cfg)["blocks"]["mlp"]["wi"].shape)
+        lap("AdamW's peaks")
+        host = cpu_run.result()
+        lap("check, CPU copy waited for")
+        kimi = _moe_smoke_kimi()
+        lap("kimi-k2 SMOKE")
+
+    # check 2: the card against its CPU copy
+    _same_routes(card["routes"], host["routes"], "the 2-layer f32 model")
+    n_routes = len(card["routes"])
+    pre_err = float((card["prefill"].cpu() - host["prefill"]).abs().max())
+    last_err = float((card["last"].cpu() - host["last"]).abs().max())
+    check(np.array_equal(card["tokens"], host["tokens"])
+          and torch.allclose(card["prefill"].cpu(), host["prefill"],
+                             **LM_CHECK_TOL)
+          and torch.allclose(card["last"].cpu(), host["last"],
+                             **LM_CHECK_TOL),
+          f"[moe] the card vs its CPU copy: tokens {card['tokens'].tolist()}"
+          f" vs {host['tokens'].tolist()}, prefill logits max abs err "
+          f"{pre_err}, last decode step's {last_err}")
+    errs, n_small = _adamw_errs(card, host, params_h)
+    worst = max(errs, key=errs.get)
+    loss_err = abs(card["loss"] - host["loss"])
+    del card, host, params_h
+    busy = sum(t for _, t, _ in ops_ms)
+    top = sorted(ops_ms, key=lambda o: -o[1])[:4]
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - mem0
+    launched = launch_counts()
+    lap("check, compare")
+
+    med = float(np.median(step_ms))
+    model_flops = 6.0 * cfg.n_active_params() * b * s
+    mfu = model_flops / (med / 1e3) / TARGET.peak_bf16_flops
+    print(f"[moe] {MOE_ARCH} CONFIG ({arch.source}; {cfg.n_layers} layers, "
+          f"d {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV, "
+          f"head_dim {cfg.head_dim}, {moe.n_experts} experts top-"
+          f"{moe.top_k} of d_ff {moe.d_ff_expert}, capacity factor "
+          f"{moe.capacity_factor}, vocab {cfg.vocab_size:,}, "
+          f"{cfg.param_dtype}): {n_params:,} parameters "
+          f"({cfg.n_active_params():,} active), {nbytes:,} B, drawn on the "
+          f"card in {init_s:.2f} s; serving peak {serve_peak:,} B; "
+          f"make_train_step with {opt.name} on one batch of random tokens, "
+          f"{b} x {s:,} ({MOE_TRAIN_SHAPE}'s sequence length; its batch cut "
+          f"from {shape['global_batch']} to the largest of 1, 2, 4, 8 that "
+          f"the one-card dry run puts under 70 GB): losses "
+          + ", ".join(f"{x:.5f}" for x in losses)
+          + f", after the steps {after:.5f}; step ms "
+          + ", ".join(f"{t:.1f}" for t in step_ms)
+          + f" (median {med:.2f}); peak memory {peak:,} B; model FLOPs 6 N D "
+          f"= {model_flops:.4e} (N active), MFU {100 * mfu:.2f}% of the "
+          f"{TARGET.peak_bf16_flops:.3e} bf16 peak; a step after them "
+          f"profiled: wall {prof_ms:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / prof_ms:.1f}%), {sum(c for _, _, c in ops_ms)} "
+          f"device ops; top: "
+          + "; ".join(f"{k[:40]} {t:.1f} ms x{c}" for k, t, c in top)
+          + f"; {smi}", flush=True)
+    print(f"[moe] checks: decode vs prefill (every routed pair kept) in "
+          f"both requests; the card vs its CPU copy (2 layers, f32, TF32 "
+          f"off): routing tables equal ({n_routes} calls: the prefill's "
+          f"and a generation's), {MOE_CHECK_SHAPE[0]} x "
+          f"{MOE_CHECK_SHAPE[1]} tokens, {LM_CHECK_NEW} new: tokens equal, "
+          f"prefill logits max abs err {pre_err:.3e}, last decode step's "
+          f"{last_err:.3e} (rtol/atol {LM_CHECK_TOL['rtol']}); one AdamW step "
+          f"on {TRAIN_LM_CHECK_SHAPE[0]} x {TRAIN_LM_CHECK_SHAPE[1]} tokens: "
+          f"each leaf's gradient (its first moment) and its step (where "
+          f"|g| >= {MOE_NEAR_ZERO}; {n_small:,} entries below) at most "
+          f"{errs[worst]:.3e} of their largest ({worst}; median "
+          f"{np.median(list(errs.values())):.3e} over {len(errs)} leaves; "
+          f"limit {TRAIN_LM_REL_TOL}), loss |d| {loss_err:.3e}; "
+          f"{kimi}; {adamw_peaks}; no kernel of the port launched; "
+          f"{left:,} B left after; "
+          f"phase {time.perf_counter() - t_phase:.1f}s; {stages.line()}",
+          flush=True)
+    print(f"[moe] phase {time.perf_counter() - t_phase:.1f}s; "
+          + "; ".join(f"({n}) prefill {d['prefill_ms']:.1f} ms, decode p50 "
+                      f"{d['p50']:.2f} / p99 {d['p99']:.2f} ms vs bound "
+                      f"{d['bound_ms']:.2f}" for n, d in done.items())
+          + f"; train step {med:.1f} ms, MFU {100 * mfu:.2f}%, peak "
+          f"{peak:,} B, busy {100 * busy / prof_ms:.1f}%", flush=True)
+    check(all(np.isfinite(losses + [after])),
+          f"[moe] losses {losses}, after {after}")
+    check(after < losses[0],
+          f"[moe] the loss on the batch after {len(losses)} steps, {after}, "
+          f"is not below the first step's {losses[0]}")
+    check(busy > 0, "[moe] the profiler saw no device time")
+    check(errs[worst] <= TRAIN_LM_REL_TOL,
+          f"[moe] the 2-layer f32 AdamW step on the card vs its CPU copy: "
+          f"{errs} of each leaf's largest gradient or update (limit "
+          f"{TRAIN_LM_REL_TOL})")
+    check(left <= LM_MEM_SLACK,
+          f"[moe] {left:,} B still allocated after the phase")
+    check(launched == before,
+          f"[moe] the MoE path launched a kernel: {before} -> {launched}")
+    return {"step_ms": med, "peak": peak, "busy_share": busy / prof_ms,
+            "model_flops": model_flops, "mfu": mfu, "batch": b, "seq": s}
+
+
+#: one lane of [dryrun]: its cells through the dry run's CLI, one after
+#: another; the exit code is nonzero if any cell failed
+DRYRUN_LANE = r"""
+import json, sys
+from repro_torch.launch import dryrun
+rc = 0
+for arch, shape, mesh, batch in json.loads(sys.argv[1]):
+    args = ["--arch", arch, "--shape", shape, "--mesh", mesh, "--out",
+            sys.argv[2], "--force"]
+    rc |= dryrun.main(args + ([] if batch is None else ["--batch", str(batch)]))
+sys.exit(rc)
+"""
+
+
 class DryRun:
-    """``[dryrun]``: the dry run of [train_lm]'s cell
-    (``python -m repro_torch.launch.dryrun``), one subprocess for each mesh
-    of DRYRUN_MESHES, writing its record into a temporary directory of the
-    checkout; the fake process group lives in those processes only.
-    :meth:`collect` waits for them (at most DRYRUN_TIMEOUT_S from the
-    start), checks both records ``ok``, prints them and holds the one-card
-    roofline against [train_lm]'s measured step; :meth:`stop` ends any
-    still running and removes the directory."""
+    """``[dryrun]``: the dry runs of DRYRUN_CELLS (through ``python -m
+    repro_torch.launch.dryrun``'s ``main``) in DRYRUN_LANES subprocesses,
+    writing their records into a temporary directory of the checkout; the
+    fake process group lives in those processes only. :meth:`collect`
+    waits for them (at most DRYRUN_TIMEOUT_S from the start), checks every
+    record ``ok``, prints them and holds the one-card rooflines against
+    [train_lm]'s and [moe]'s measured steps (their peaks against the
+    estimates); :meth:`stop` ends any still running and removes the
+    directory."""
 
     def __init__(self):
         self.dir = pathlib.Path(tempfile.mkdtemp(prefix="dryrun_", dir=ROOT))
         self.t0 = time.perf_counter()
         env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-        self.procs = {}
-        for mesh, batch in DRYRUN_MESHES:
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", LM_ARCH, "--shape", TRAIN_LM_SHAPE, "--mesh",
-                   mesh, "--out", str(self.dir), "--force"]
-            if batch is not None:
-                cmd += ["--batch", str(batch)]
-            log = open(self.dir / f"{mesh}.log", "w")
-            self.procs[mesh] = (subprocess.Popen(
-                cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
-                log)
+        self.procs = []
+        for lane in range(DRYRUN_LANES):
+            cells = DRYRUN_CELLS[lane::DRYRUN_LANES]
+            log = open(self.dir / f"lane{lane}.log", "w")
+            self.procs.append((subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_LANE, json.dumps(cells),
+                 str(self.dir)], stdout=log, stderr=subprocess.STDOUT,
+                env=env, cwd=ROOT), log))
         # the hillclimb's four records, written to hillclimb.json
         self.hill_json = self.dir / "hillclimb.json"
         log = open(self.dir / "hillclimb.log", "w")
@@ -2745,36 +3259,64 @@ class DryRun:
             stderr=subprocess.STDOUT, env=env, cwd=ROOT), log)
 
     def stop(self) -> None:
-        for proc, log in (*self.procs.values(), self.hill):
+        for proc, log in (*self.procs, self.hill):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             log.close()
         shutil.rmtree(self.dir, ignore_errors=True)
 
-    def collect(self, measured: dict, smi: str) -> None:
-        recs = {}
-        for mesh, (proc, log) in self.procs.items():
+    def _against(self, what: str, rec: dict, measured: dict,
+                 smi: str) -> float:
+        """Prints a phase's measured step against its one-card record;
+        returns the measured peak over the estimated."""
+        one = rec["roofline"]
+        est = rec["memory_analysis"]["peak_size_in_bytes"]
+        step_s = measured["step_ms"] / 1e3
+        print(f"[dryrun] {what}'s step on the card against the one-card "
+              f"roofline ({measured['batch']} x {measured['seq']:,}): step "
+              f"{measured['step_ms']:.1f} ms vs bound "
+              f"{one['bound_s'] * 1e3:.1f} ms ({one['bottleneck']}; roofline "
+              f"share {100 * one['bound_s'] / step_s:.1f}%); counted FLOPs "
+              f"{one['flops_per_chip']:.4e} vs 6 N D "
+              f"{measured['model_flops']:.4e} (ratio "
+              f"{one['flops_per_chip'] / measured['model_flops']:.3f}); "
+              f"achieved {one['flops_per_chip'] / step_s:.4e} FLOP/s, MFU "
+              f"{100 * measured['mfu']:.2f}%; device busy "
+              f"{100 * measured['busy_share']:.1f}%; peak measured "
+              f"{measured['peak']:,} B vs estimated {est:,} B (ratio "
+              f"{measured['peak'] / est:.3f}); [dryrun] "
+              f"{time.perf_counter() - self.t0:.1f} s from its start; {smi}",
+              flush=True)
+        return measured["peak"] / est
+
+    def collect(self, measured: dict, moe: dict, smi: str) -> None:
+        rcs = []
+        for lane, (proc, log) in enumerate(self.procs):
             left = DRYRUN_TIMEOUT_S - (time.perf_counter() - self.t0)
             try:
-                rc = proc.wait(timeout=max(left, 1.0))
+                rcs.append(proc.wait(timeout=max(left, 1.0)))
             except subprocess.TimeoutExpired:
-                raise RuntimeError(f"[dryrun] the {mesh} mesh's run passed "
+                raise RuntimeError(f"[dryrun] lane {lane} passed "
                                    f"{DRYRUN_TIMEOUT_S} s") from None
             log.close()
-            found = sorted(self.dir.glob(f"*{MESHES[mesh][0]}*.json"))
-            tail = (self.dir / f"{mesh}.log").read_text()[-1500:]
-            check(len(found) == 1,
-                  f"[dryrun] the {mesh} mesh's run: rc {rc}, records "
-                  f"{[f.name for f in found]}; its output ends: {tail}")
-            rec = json.loads(found[0].read_text())
-            check(rc == 0 and rec["status"] == "ok",
-                  f"[dryrun] {rec['cell']}: rc {rc}, {rec['status']} "
-                  f"{rec.get('op')}: {rec.get('error', '')[:1500]}\n"
-                  f"{rec.get('trace', '')}")
-            recs[mesh] = rec
-        wall = time.perf_counter() - self.t0
-        for mesh, rec in recs.items():
+        recs = {}
+        for arch, shape, mesh, batch in DRYRUN_CELLS:
+            suffix = "" if batch is None else f"__b{batch}"
+            path = (self.dir
+                    / f"{arch}__{shape}__{MESHES[mesh][0]}{suffix}.json")
+            tails = " | ".join(p.read_text()[-800:]
+                               for p in self.dir.glob("lane*.log"))
+            check(path.exists(),
+                  f"[dryrun] no record {path.name} (rcs {rcs}); the lanes' "
+                  f"output ends: {tails}")
+            rec = json.loads(path.read_text())
+            check(rec["status"] == "ok",
+                  f"[dryrun] {rec['cell']}: {rec['status']} {rec.get('op')}:"
+                  f" {rec.get('error', '')[:1500]}\n{rec.get('trace', '')}")
+            recs[arch, mesh] = rec
+        check(rcs == [0] * DRYRUN_LANES, f"[dryrun] the lanes' rcs {rcs}")
+        for rec in recs.values():
             r, mem = rec["roofline"], rec["memory_analysis"]
             coll = ", ".join(f"{k} {v:.3e}"
                              for k, v in r["coll_breakdown"].items() if v)
@@ -2791,24 +3333,13 @@ class DryRun:
                   f"FLOPs {r['model_flops']:.4e}, useful "
                   f"{r['useful_flops_fraction']:.3f}; "
                   f"{r['counter']['n_ops']:,} local ops; comm "
-                  f"{rec['comm_counts']}", flush=True)
-        one = recs["one"]["roofline"]
-        est = recs["one"]["memory_analysis"]["peak_size_in_bytes"]
-        step_s = measured["step_ms"] / 1e3
-        print(f"[dryrun] [train_lm]'s step on the card against the one-card "
-              f"roofline ({measured['batch']} x {measured['seq']:,}): step "
-              f"{measured['step_ms']:.1f} ms vs bound "
-              f"{one['bound_s'] * 1e3:.1f} ms ({one['bottleneck']}; roofline "
-              f"share {100 * one['bound_s'] / step_s:.1f}%); counted FLOPs "
-              f"{one['flops_per_chip']:.4e} vs 6 N D "
-              f"{measured['model_flops']:.4e} (ratio "
-              f"{one['flops_per_chip'] / measured['model_flops']:.3f}); "
-              f"achieved {one['flops_per_chip'] / step_s:.4e} FLOP/s, MFU "
-              f"{100 * measured['mfu']:.2f}%; device busy "
-              f"{100 * measured['busy_share']:.1f}%; peak measured "
-              f"{measured['peak']:,} B vs estimated {est:,} B (ratio "
-              f"{measured['peak'] / est:.3f}); [dryrun] {wall:.1f} s from "
-              f"its start; {smi}", flush=True)
+                  f"{rec['comm_counts']}; torch {torch.__version__}",
+                  flush=True)
+        self._against("[train_lm]", recs[LM_ARCH, "one"], measured, smi)
+        ratio = self._against("[moe]", recs[MOE_ARCH, "one"], moe, smi)
+        check(abs(ratio - 1) <= MOE_PEAK_TOL,
+              f"[moe] the training peak {moe['peak']:,} B is {ratio:.3f} of "
+              f"the one-card dry run's estimate (limit 1 +- {MOE_PEAK_TOL})")
 
     def collect_hillclimb(self, smi: str) -> None:
         """``[hillclimb]``: waits for the hillclimb's process, checks its
@@ -3089,11 +3620,11 @@ def phase_profile(idx, Q: np.ndarray, mask) -> None:
         idx.search_many(Q, k=K, efs=EFS, semimask=mask)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    ops_ms = device_ops(averages)
+    ops_ms = device_ops(prof)
     device_ms = sum(t for _, t, _ in ops_ms)
     kernel_ms = _gather_kernel_ms(ops_ms, int8=False)
-    launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
+    launches = sum(e.name() == "cudaLaunchKernel"
+                   for e in prof.profiler.kineto_results.events())
     check(device_ms > 0, "the profiler saw no device time")
     print(f"[profile] sigma=0.1, one pass of B={len(Q)} under torch.profiler:"
           f" wall {wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
@@ -3186,7 +3717,7 @@ def _profile_single(search_one, q, mask, int8: bool) -> tuple:
         search_one(q, k=K, efs=EFS, semimask=mask)
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops_ms = device_ops(prof.key_averages())
+    ops_ms = device_ops(prof)
     busy_ms = sum(t for _, t, _ in ops_ms)
     check(busy_ms > 0, "the profiler saw no device time in a search")
     return (wall_ms, busy_ms, _gather_kernel_ms(ops_ms, int8),
@@ -4209,6 +4740,8 @@ def main() -> int:
         timed("lm", phase_lm, smi)
         # LM training at full width: no kernel of the port either
         trained = timed("train_lm", phase_train_lm, smi)
+        # the MoE family served and trained at full width: none either
+        moe_trained = timed("moe", phase_moe, smi)
         # the GNN training path, its counts read just after its steps
         gnn_launches = timed("gnn", phase_gnn, smi, graph)
         kernels["csr_segment_sum"]["launches"] += gnn_launches
@@ -4226,8 +4759,8 @@ def main() -> int:
         sweep = {s: masks[s] for s in SELECTIVITIES}
         X_shard = X[:SHARD_ROWS].copy()                # [shard]'s rows
 
-        # the dry run of [train_lm]'s cell, in subprocesses while the host
-        # builds the index
+        # the dry runs of [train_lm]'s, [moe]'s and three more cells, in
+        # subprocesses while the host builds the index
         dry = DryRun()
         atexit.register(dry.stop)
         reset_counts()                                 # f32 path: build
@@ -4282,7 +4815,7 @@ def main() -> int:
         shard_read = launch_counts()
         timed("ckpt", phase_ckpt, *ckpt_state, Q)
         del ckpt_state
-        timed("dryrun", dry.collect, trained, smi)
+        timed("dryrun", dry.collect, trained, moe_trained, smi)
         timed("hillclimb", dry.collect_hillclimb, smi)
         dry.stop()
     late_nvcc = {p: k["nvcc"] for p, k in cc.kinds.items()

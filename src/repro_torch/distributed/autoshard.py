@@ -148,3 +148,27 @@ def constrain(x: torch.Tensor, *roles):
     # constrains the cotangent too
     return x.redistribute(x.device_mesh,
                           to_placements(Spec(*spec), x.device_mesh))
+
+
+def split_dims(x: torch.Tensor) -> frozenset[int]:
+    """The dims of ``x`` that a sharding policy splits over the mesh: none
+    outside a policy or for a plain tensor."""
+    if _POLICY is None:
+        return frozenset()
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return frozenset()
+    return frozenset(p.dim for p in x.placements if isinstance(p, Shard))
+
+
+def local_shard(x: torch.Tensor, mesh, *roles) -> torch.Tensor:
+    """This chip's shard of ``x`` laid out by roles on ``mesh`` (under a
+    policy): a plain tensor is taken as replicated, so its shard is a
+    slice of it."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return constrain(x, *roles).to_local()

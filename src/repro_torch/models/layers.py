@@ -18,7 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.autoshard import axis_size, constrain, sharded
+from repro_torch.distributed.autoshard import (axis_size, constrain,
+                                               local_shard, sharded,
+                                               split_dims)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -137,6 +139,24 @@ def _merged_heads(out: torch.Tensor, kvh: int) -> torch.Tensor:
     return out
 
 
+def _on_shards(fn, q, k, v, rows, **kw) -> torch.Tensor:
+    """``fn(q, k, v, *rows, **kw)`` on each chip's own batch rows and KV
+    heads, where a sharding policy splits k [B, S, KV, hd] over both, as
+    GSPMD partitions a product batched over two sharded dims:
+    attention mixes neither rows nor heads, so the shards' outputs laid
+    out as q is are the output. ``rows`` are [B, ...] tensors (a mask,
+    positions). (``DTensor`` 2.11 flattens no two sharded dims, which the
+    einsums' batched products do.)"""
+    from torch.distributed.tensor import DTensor
+
+    mesh = k.device_mesh
+    q, k, v = (constrain(t, "dp", None, "tp", None) for t in (q, k, v))
+    out = fn(q.to_local(), k.to_local(), v.to_local(),
+             *(local_shard(r, mesh, "dp", *(None,) * (r.ndim - 1))
+               for r in rows), **kw)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: torch.Tensor, *, logit_cap: float = 0.0,
         scale: float | None = None) -> torch.Tensor:
@@ -145,6 +165,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     einsum times ``scale`` (1/sqrt(hd) by default), soft-capped, set to
     -1e30 where ``mask`` is false, and soft-maxed in f32; the weights are
     cast to q's dtype before they weigh v. -> [B, Sq, H, hd]."""
+    if split_dims(k) == {0, 2}:
+        return _on_shards(mha, q, k, v, (mask,), logit_cap=logit_cap,
+                          scale=scale)
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     groups = h // kvh
@@ -176,6 +199,10 @@ def chunked_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk runs under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint(step)``): the backward recomputes a chunk's
     probabilities instead of keeping them."""
+    if split_dims(k) == {0, 2}:
+        return _on_shards(chunked_mha, q, k, v, (q_pos, kv_pos),
+                          causal=causal, window=window, logit_cap=logit_cap,
+                          chunk=chunk, scale=scale)
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     groups = h // kvh
@@ -288,7 +315,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     """table [V, D]; ids [B, hot] with -1 padding -> [B, D] (sum or mean
     over each bag's valid ids; an empty bag gives zeros)."""
     valid = ids >= 0
-    rows = torch.where(valid[..., None], table[ids.clamp(min=0)], 0)
+    rows = torch.where(valid[..., None], _take(table, ids.clamp(min=0)), 0)
     out = rows.sum(dim=1)
     if mode == "mean":
         cnt = valid.sum(dim=1).to(rows.dtype)
@@ -298,15 +325,30 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for ids >= 0. Under a sharding policy the rows are
+    taken by ``F.embedding`` (the same rows), whose backward DTensor
+    shards where it has no rule for ``table[ids]``'s (2.11's fails on a
+    batch of bags too), from the table gathered over the data axes as
+    FSDP gathers a weight before its use (its vocabulary stays sharded
+    over model; a lookup into a table whose width shares the ids' data
+    axes masks the wrong rows). Where the model axis does not divide the
+    vocabulary (granite's 49,155) the ids are gathered instead and each
+    chip takes every id's slice of its own columns: DTensor 2.11's
+    backward of a whole-table gather fails at full size."""
+    if not sharded():
+        return table[ids]
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if (table.shape[0] % axis_size("tp") == 0
+            or not isinstance(ids, DTensor)):
+        return F.embedding(ids, constrain(table, "tp", None))
+    mesh = ids.device_mesh
+    return F.embedding(ids.redistribute(mesh, [Replicate()] * mesh.ndim),
+                       table)
+
+
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Single-hot lookup with -1 -> zeros. Under a sharding policy the
-    rows are taken by ``F.embedding`` (the same rows), whose backward
-    DTensor shards where it has no rule for ``table[ids]``'s, from the
-    table gathered over the data axes as FSDP gathers a weight before its
-    use (its vocabulary stays sharded over model; a lookup into a table
-    whose width shares the ids' data axes masks the wrong rows)."""
-    if sharded():
-        out = F.embedding(ids.clamp(min=0), constrain(table, "tp", None))
-    else:
-        out = table[ids.clamp(min=0)]
-    return torch.where((ids >= 0)[..., None], out, 0)
+    """Single-hot lookup with -1 -> zeros."""
+    return torch.where((ids >= 0)[..., None], _take(table, ids.clamp(min=0)),
+                       0)

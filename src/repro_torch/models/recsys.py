@@ -178,12 +178,14 @@ def _dien(cfg: RecsysConfig, params, batch, cdt) -> list[torch.Tensor]:
     for x in xe.unbind(1):
         h = _gru_cell(params["gru"], h, x).to(cdt)
         hs.append(h)
-    hs = torch.stack(hs)                                      # [T, B, g]
-    att_in = torch.cat([hs, te[None].expand(t, b, te.shape[-1])], dim=-1)
+    # B leads, so that the product's flattened rows keep B's sharding
+    # (a DTensor cannot unflatten [T * B] with B sharded inside it)
+    att_in = torch.cat([torch.stack(hs, dim=1),
+                        te[:, None].expand(b, t, te.shape[-1])], dim=-1)
     scores = torch.softmax((att_in @ params["attn"].to(cdt))[..., 0],
-                           dim=0)                             # [T, B]
+                           dim=1)                             # [B, T]
     h = torch.zeros((b, cfg.gru_dim), dtype=cdt, device=xe.device)
-    for x, a in zip(hs.unbind(0), scores.unbind(0)):
+    for x, a in zip(hs, scores.unbind(1)):
         h = _gru_cell(params["augru"], h, x, att=a).to(cdt)
     return [h, te]
 

@@ -36,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import resolve_device
 from repro_torch.config.base import LMConfig, MoEConfig
-from repro_torch.distributed.autoshard import axis_size, constrain, sharded
+from repro_torch.distributed.autoshard import (axis_size, constrain,
+                                               sharded, split_dims)
 from repro_torch.models import layers as L
 from repro_torch.models.recsys import _carry
 
@@ -176,22 +177,77 @@ def moe_dispatch(router: torch.Tensor, xg: torch.Tensor, moe: MoEConfig):
     st = torch.gather(t_flat, -1, order)
     sg = torch.gather(g_flat, -1, order)
     idx = torch.arange(tl * k, device=dev)[None].expand(g, tl * k)
-    newseg = torch.cat([torch.ones((g, 1), dtype=torch.bool, device=dev),
-                        se[:, 1:] != se[:, :-1]], dim=-1)
-    seg_first = torch.cummax(torch.where(newseg, idx, 0), dim=1).values
-    rank = idx - seg_first
+    # each pair's rank in its expert's run of the sorted pairs: its index
+    # less the run's start, the count of the pairs of lower experts (the
+    # reference's cummax over run starts; DTensor 2.11 has no rule for
+    # cummax, nor for the ``!=`` that finds the starts)
+    counts = se.new_zeros((g, e)).scatter_add(1, se, torch.ones_like(se))
+    rank = idx - torch.gather(torch.cumsum(counts, dim=1) - counts, 1, se)
     keep = rank < cap
 
-    # the reference's .at[...].set(mode="drop"): the dropped pairs write
-    # into an extra row E, which is cut off
-    rows = torch.where(keep, se, e)
-    cols = torch.where(keep, rank, 0)
-    gi = torch.arange(g, device=dev)[:, None].expand(g, tl * k)
-    slot_tok = torch.full((g, e + 1, cap), -1, dtype=torch.long, device=dev)
-    slot_tok[gi, rows, cols] = torch.where(keep, st, -1)
-    slot_gate = torch.zeros((g, e + 1, cap), dtype=torch.float32, device=dev)
-    slot_gate[gi, rows, cols] = torch.where(keep, sg, 0.0)
-    return slot_tok[:, :e], slot_gate[:, :e]
+    # the reference's .at[...].set(mode="drop") as a sum into zeros,
+    # batched over G along dim 1 (a DTensor shards it on G): a kept pair
+    # owns its slot, and a dropped one adds 0 into its expert's slot 0, so
+    # every sum is exact. The tokens are stored as t + 1 (0 is empty).
+    slot = (se * cap + torch.where(keep, rank, 0))
+    slot_tok = se.new_zeros((g, e * cap)).scatter_add(
+        1, slot, torch.where(keep, st + 1, 0)) - 1
+    slot_gate = sg.new_zeros((g, e * cap)).scatter_add(
+        1, slot, torch.where(keep, sg, 0.0))
+    # the gates' gradient comes back laid out as the experts' outputs are
+    # (capacity split over the model axis where E does not divide it): it
+    # is gathered over C before the backward flattens [E, C]
+    return (slot_tok.reshape(g, e, cap),
+            constrain(slot_gate.reshape(g, e, cap), "dp", None, None))
+
+
+def _experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Each expert's product: x [G, E, C, k] times w [E, k, n] -> [G, E,
+    C, n]. Where a sharding policy splits x over G and C (E does not
+    divide the model axis: granite's 40 on 16) each chip multiplies its
+    own slots by the whole w, as GSPMD gathers it, and w's gradient is
+    the chips' sum: the einsum would flatten G with C, two split dims,
+    which DTensor 2.11 refuses."""
+    if split_dims(x) != {0, 2}:
+        return torch.einsum("gecd,edf->gecf", x, w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    if isinstance(w, DTensor):
+        # summed over the mesh dims that split the slots
+        w = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=[Partial() if isinstance(q, Shard)
+                             else Replicate() for q in x.placements])
+    out = torch.einsum("gecd,edf->gecf", x.to_local(), w)
+    return DTensor.from_local(out, mesh, x.placements, run_check=False)
+
+
+def _combine(ye: torch.Tensor, slot_tok: torch.Tensor,
+             tl: int) -> torch.Tensor:
+    """The experts' outputs ye [G, E, C, d] summed into each group's
+    tokens, [G, Tl + 1, d]: the reference's vmapped
+    ``.at[...].add(mode="drop")``, one sum along dim 1 batched over G;
+    empty slots add into row Tl, which the caller cuts off. Where ye is
+    split over G and C each chip sums its own slots into its group's
+    rows, the sum ``Partial`` over the model axis (DTensor 2.11 flattens
+    no [E, C] with C split)."""
+    d = ye.shape[-1]
+    dest = torch.where(slot_tok >= 0, slot_tok, tl)
+
+    def add(y, dst):
+        g = y.shape[0]
+        return y.new_zeros((g, tl + 1, d)).scatter_add(
+            1, dst.reshape(g, -1, 1).expand(-1, -1, d), y.reshape(g, -1, d))
+
+    if split_dims(ye) != {0, 2}:
+        return add(ye, dest)
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    out = add(ye.to_local(), constrain(dest, "dp", None, "tp").to_local())
+    return DTensor.from_local(
+        out, ye.device_mesh,
+        [Partial() if isinstance(q, Shard) and q.dim == 2 else q
+         for q in ye.placements], run_check=False)
 
 
 def moe_apply(p, x: torch.Tensor, moe: MoEConfig,
@@ -204,7 +260,7 @@ def moe_apply(p, x: torch.Tensor, moe: MoEConfig,
     ``axis_size("dp")`` under an ``activation_sharding`` policy (1 without
     one, or where G does not divide T), and each group routes only its own
     tokens with a per-group capacity, so no dispatch tensor leaves its
-    shard. On CUDA the combine's ``index_add_`` is atomic: the order in
+    shard. On CUDA the combine's ``scatter_add`` is atomic: the order in
     which a token's k expert outputs are summed varies from run to run."""
     t, d = x.shape
     e = moe.n_experts
@@ -212,13 +268,14 @@ def moe_apply(p, x: torch.Tensor, moe: MoEConfig,
     if t % g:
         g = 1
     tl = t // g                                  # tokens per group
-    dev = x.device
     xg = constrain(x.reshape(g, tl, d), "dp", None, None)
     slot_tok, slot_gate = moe_dispatch(p["router"], xg, moe)
 
+    cap = slot_tok.shape[-1]
+    rows = slot_tok.clamp(min=0).reshape(g, e * cap, 1).expand(-1, -1, d)
     xe = torch.where((slot_tok >= 0)[..., None],
-                     xg[torch.arange(g, device=dev)[:, None, None],
-                        slot_tok.clamp(min=0)], 0)            # [G, E, C, d]
+                     torch.gather(xg, 1, rows).reshape(g, e, cap, d),
+                     0)                                       # [G, E, C, d]
     # experts over model (EP), groups over data. When E doesn't divide the
     # model axis (granite: 40/16), shard capacity over model instead.
     ec = (("dp", "tp") if e % max(axis_size("tp"), 1) == 0
@@ -226,8 +283,7 @@ def moe_apply(p, x: torch.Tensor, moe: MoEConfig,
     spec = (ec + (None,) * (4 - len(ec)))[:3] + (None,)
     xe = constrain(xe, *spec)
     dt = torch.promote_types(xe.dtype, p["wi"].dtype)
-    gate_up = constrain(
-        torch.einsum("gecd,edf->gecf", xe.to(dt), p["wi"].to(dt)), *spec)
+    gate_up = constrain(_experts(xe.to(dt), p["wi"].to(dt)), *spec)
     gate, up = gate_up.chunk(2, dim=-1)
     if activation == "swiglu":
         act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype)
@@ -236,17 +292,11 @@ def moe_apply(p, x: torch.Tensor, moe: MoEConfig,
                                        approximate="tanh").to(x.dtype)
     h = act * up
     dt = torch.promote_types(h.dtype, p["wo"].dtype)
-    ye = constrain(torch.einsum("gecf,efd->gecd", h.to(dt), p["wo"].to(dt)),
-                   *spec)
+    ye = constrain(_experts(h.to(dt), p["wo"].to(dt)), *spec)
     ye = ye * slot_gate[..., None].to(ye.dtype)
 
-    # the reference's .at[...].add(mode="drop") into [Tl + 1, d]: empty
-    # slots add into row Tl, which is cut off
-    out = torch.zeros((g, tl + 1, d), dtype=ye.dtype, device=dev)
-    dest = torch.where(slot_tok >= 0, slot_tok, tl).reshape(g, -1)
-    for j in range(g):
-        out[j].index_add_(0, dest[j], ye[j].reshape(-1, d))
-    out = constrain(out[:, :tl], "dp", None, None).reshape(t, d)
+    out = constrain(_combine(ye, slot_tok, tl)[:, :tl], "dp", None,
+                    None).reshape(t, d)
     if "shared" in p:
         out = out + L.gated_mlp(p["shared"], x, activation)
     return out
@@ -289,6 +339,18 @@ def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     if n % axis_size("tp"):
         t = constrain(t, "dp", None, None)
     return t.reshape(*t.shape[:-1], n, hd)
+
+
+def _merged(t: torch.Tensor) -> torch.Tensor:
+    """[B, S, n, hd] -> [B, S, n * hd], :func:`_heads`' inverse. Where n
+    heads do not divide the model axis the flat width is kept whole under
+    a sharding policy, so that its gradient, which the output projection
+    sends back split over the model axis, is gathered before the backward
+    splits it into n heads."""
+    out = t.reshape(*t.shape[:2], -1)
+    if t.shape[2] % axis_size("tp"):
+        out = constrain(out, "dp", None, None)
+    return out
 
 
 def _qkv(cfg: LMConfig, p, x: torch.Tensor, positions: torch.Tensor):
@@ -349,7 +411,7 @@ def _block(cfg: LMConfig, p, x: torch.Tensor, positions: torch.Tensor,
         mask = L.attention_mask(positions, positions, causal=True,
                                 window=window)
         attn = L.mha(q, k, v, mask, logit_cap=cfg.attn_logit_softcap)
-    return _attn_out_and_mlp(cfg, p, x, attn.reshape(b, s, -1)), k, v
+    return _attn_out_and_mlp(cfg, p, x, _merged(attn)), k, v
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -465,7 +527,7 @@ def decode_step(cfg: LMConfig, params, cache: KVCache,
             ck.index_copy_(1, write, k1.to(ck.dtype))
             cv.index_copy_(1, write, v1.to(cv.dtype))
         attn = L.mha(q, ck, cv, masks[w], logit_cap=cfg.attn_logit_softcap)
-        x = _attn_out_and_mlp(cfg, p, x, attn.reshape(b, 1, -1))
+        x = _attn_out_and_mlp(cfg, p, x, _merged(attn))
     cache.length.add_(1)
     return cache, _head(cfg, params, x)[:, 0]
 

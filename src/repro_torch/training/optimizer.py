@@ -1,12 +1,24 @@
 """Optimizers, written out (port of ``repro.training.optimizer``).
 
 AdamW for the small and medium archs; Adafactor (factored second moments,
-Shazeer & Stern 2018) for the largest. Both are functional updates over a
-tree of tensors, run under ``torch.no_grad()``: ``update(grads, state,
-params)`` returns new parameters and a new state and changes neither
-input. The state trees are the reference's (``{"m", "v", "count"}`` and
-``{"per_param": {"vr", "vc"} | {"v"}, "count"}``, f32 moments and an int32
-count), so they checkpoint under the reference's leaf keys.
+Shazeer & Stern 2018) for the largest. Both are updates over a tree of
+tensors, run under ``torch.no_grad()``: ``update(grads, state, params)``
+returns new parameters and a new state and leaves ``params`` as it was.
+Adafactor's state is new too; AdamW's moments are written in place into
+the given state's ``m`` and ``v``, which the new state holds (the
+reference's dry run donates the step's state to the same end), and a
+stacked leaf whose f32 copy passes ``SPLIT_BYTES`` is updated a layer at
+a time. That keeps a full-width update within one card: for
+granite-moe-3b-a800m (3.30 B parameters) new moments would add 26.4 GB
+beside the old, and on its expert leaf ``wi`` [32, 40, 1536, 1024] the
+whole-leaf arithmetic ran out of memory on an 80 GB H100 beside the leaf,
+its gradient and moments (24 GB), where a layer at a time adds
+5,033,167,360 B (``chip_smoke.py``'s ``[moe]``, NVIDIA H100 80GB HBM3,
+700.00 W). Smaller leaves are updated whole: a loop over the layers
+launches each op once a layer. The state trees are the
+reference's (``{"m", "v", "count"}`` and ``{"per_param": {"vr", "vc"} |
+{"v"}, "count"}``, f32 moments and an int32 count), so they checkpoint
+under the reference's leaf keys.
 """
 
 from __future__ import annotations
@@ -39,36 +51,53 @@ def _count(params) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=leaves[0].device)
 
 
+#: AdamW updates a stacked leaf a layer at a time where its f32 copy
+#: passes this many bytes
+SPLIT_BYTES = 1 << 30
+
+
 def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
-          eps: float = 1e-8, weight_decay: float = 0.01) -> Optimizer:
+          eps: float = 1e-8, weight_decay: float = 0.01,
+          split_bytes: int = SPLIT_BYTES) -> Optimizer:
     def init(params):
         zeros = _map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                      params)
         return {"m": zeros, "v": _map(torch.clone, zeros),
                 "count": _count(params)}
 
-    def upd_one(g, m, v, p, cf):
+    def upd_one(g, m, v, p, c1, c2):
+        """The new ``p``; the new moments are written into ``m`` and
+        ``v``, each op rounding as ``b1 * m + (1 - b1) * g`` does."""
         g = g.to(torch.float32)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        mhat = m / (1 - b1 ** cf)
-        vhat = v / (1 - b2 ** cf)
-        step = lr * (mhat / (torch.sqrt(vhat) + eps)
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        step = lr * (m / c1 / (torch.sqrt(v / c2) + eps)
                      + weight_decay * p.to(torch.float32))
-        return (p.to(torch.float32) - step).to(p.dtype), m, v
+        return (p.to(torch.float32) - step).to(p.dtype)
+
+    def upd(g, m, v, p, c1, c2):
+        # a stacked (per-layer) leaf too large for whole-leaf f32
+        # temporaries is updated one leading slice at a time: granite-moe's
+        # expert leaf wi [32, 40, 1536, 1024] would make 8.05 GB ones.
+        # Elementwise, so bit for bit the whole leaf's arithmetic.
+        if p.ndim < 3 or 4 * p.numel() <= split_bytes:
+            return upd_one(g, m, v, p, c1, c2)
+        new_p = torch.empty_like(p)
+        for i in range(p.shape[0]):
+            new_p[i] = upd_one(g[i], m[i], v[i], p[i], c1, c2)
+        return new_p
 
     @torch.no_grad()
     def update(grads, state, params):
         c = state["count"] + 1
         cf = c.to(torch.float32)             # bias corrections in f32
+        c1, c2 = 1 - b1 ** cf, 1 - b2 ** cf
         flat_p, treedef = _flat(params)
-        outs = [upd_one(g, m, v, p, cf) for g, m, v, p in zip(
+        new_p = [upd(g, m, v, p, c1, c2) for g, m, v, p in zip(
             _flat(grads)[0], _flat(state["m"])[0], _flat(state["v"])[0],
             flat_p)]
-        return (tree_unflatten(treedef, [o[0] for o in outs]),
-                {"m": tree_unflatten(treedef, [o[1] for o in outs]),
-                 "v": tree_unflatten(treedef, [o[2] for o in outs]),
-                 "count": c})
+        return (tree_unflatten(treedef, new_p),
+                {"m": state["m"], "v": state["v"], "count": c})
 
     return Optimizer(init=init, update=update, name="adamw")
 

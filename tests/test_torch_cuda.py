@@ -991,6 +991,83 @@ def test_lm_smoke_adafactor_step_on_the_card_matches_the_cpu_copy(cuda):
     assert st["count"].device.type == "cuda"
 
 
+def test_granite_moe_forward_and_adamw_step_on_the_card_match_the_cpu_copy(
+        cuda, monkeypatch):
+    """granite-moe-3b-a800m's full width cut to 2 layers, in f32 (TF32
+    off): the forward's routing tables on the card equal its CPU copy's
+    (``moe_dispatch``'s token tables), its logits at rtol 1e-4 / atol 1e-4
+    (the combine's atomic adds); every gradient within 5e-3 of its leaf's
+    largest; one AdamW step of ``make_train_step`` (the CONFIG's
+    optimizer) within 5e-3 of each leaf's largest update where the
+    gradient is at least 1e-6 (below, AdamW's first update, lr g / (|g| +
+    1e-8), turns last-bit gradient differences into up to lr); no kernel
+    of the port launched."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m").config,
+                              n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    params = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 64)).astype(np.int32))
+    tables, real = [], T.moe_dispatch
+
+    def spy(*args):
+        out = real(*args)
+        tables.append(out[0].cpu())
+        return out
+
+    monkeypatch.setattr(T, "moe_dispatch", spy)
+    pc = _to(params, cuda)
+    before = _kernel_counts()
+    with torch.no_grad():
+        want = T.lm_forward(cfg, params, tokens)
+        got = T.lm_forward(cfg, pc, tokens.to(cuda))
+    assert len(tables) == 4
+    for a, b in zip(tables[:2], tables[2:]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    loss_fn = api.model_api(cfg).loss
+    _, _, grads_h = api.value_and_grad(loss_fn, params, {"tokens": tokens})
+    _, _, grads_c = api.value_and_grad(loss_fn, pc,
+                                       {"tokens": tokens.to(cuda)})
+    step, opt = api.make_train_step(cfg)
+    assert opt.name == "adamw"
+    new_h, _, mh = step(params, opt.init(params), {"tokens": tokens})
+    new_c, _, mc = step(pc, opt.init(pc), {"tokens": tokens.to(cuda)})
+    assert _kernel_counts() == before
+    torch.testing.assert_close(mc["loss"].cpu(), mh["loss"], rtol=1e-4,
+                               atol=1e-5)
+    for gc, gh, got, want, p in zip(
+            tree_leaves(grads_c), tree_leaves(grads_h), tree_leaves(new_c),
+            tree_leaves(new_h), tree_leaves(params)):
+        assert float((gc.cpu() - gh).abs().max()) <= \
+            5e-3 * float(gh.abs().max().clamp(min=1e-30))
+        upd = float((want - p).abs().max().clamp(min=1e-30))
+        big = gh.abs() >= 1e-6
+        assert float(((got.cpu() - want).abs() * big).max()) <= 5e-3 * upd
+
+
+@pytest.mark.parametrize("arch_id,shape_name", [
+    ("granite-moe-3b-a800m", "train_4k"), ("dien", "train_batch"),
+    ("gemma-7b", "train_4k")])
+def test_repaired_dry_run_cells_on_this_torch(cuda, arch_id, shape_name):
+    """The repaired dry-run cells at SMOKE size on a 2x2 fake mesh under
+    this host's torch (the card machine's may differ from the CPU's):
+    the MoE's batched dispatch, DIEN's attention product, attention split
+    over both the batch and the KV heads; each ``ok``."""
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch.mesh import fake_mesh
+
+    over = {"global_batch": 4, "seq_len": 64} if arch_id != "dien" else None
+    with fake_mesh((2, 2), ("data", "model")) as mesh:
+        rec = dryrun_lib.run_cell(arch_id, shape_name, mesh, "2x2", over,
+                                  smoke=True)
+    assert rec["status"] == "ok", (rec.get("op"), rec.get("error"))
+
+
 def test_host_mesh_on_the_card(cuda):
     """``make_host_mesh()`` makes a one-rank NCCL group on the card and a
     (1, 1) mesh over it; a DTensor placed by the sharding rules on it runs

@@ -9,8 +9,9 @@ over the same layers, a nested scan, an unrolled loop; and it counts the
 recomputation of ``torch.utils.checkpoint``. On a ``DTensor`` it counts
 the local shard's work, not the global op that ``DTensor``'s sharding
 propagation also runs. A SMOKE dry run of the dense LMs on a 2x2 ``fake``
-mesh is ``ok``, its FLOPs a chip's share of the 1x1 run's; the record has
-the reference's keys; the CLI and the report run.
+mesh is ``ok``, its FLOPs a chip's share of the 1x1 run's, as are the MoE
+LMs' and DIEN's cells and granite-moe's full train cell on 16x16; the
+record has the reference's keys; the CLI and the report run.
 """
 
 import json
@@ -221,6 +222,39 @@ def test_dense_lm_smoke_cells_run_on_a_fake_mesh(arch_id, shape_name):
         rec = dryrun_lib.run_cell(arch_id, shape_name, mesh, "2x2", SMALL,
                                   smoke=True)
     assert rec["status"] == "ok", (rec.get("op"), rec.get("error"))
+
+
+@pytest.mark.parametrize("arch_id,shape_name", [
+    (a, s) for a in ("granite-moe-3b-a800m", "kimi-k2-1t-a32b")
+    for s in ("train_4k", "prefill_32k", "decode_32k")] + [
+    ("dien", "train_batch"), ("dien", "serve_p99")])
+def test_moe_and_dien_smoke_cells_run_on_a_fake_mesh(arch_id, shape_name):
+    """The MoE's routing tables and combine are batched over the data
+    groups (a scatter along the slots), DIEN's attention product keeps the
+    batch first: each cell is ``ok``, and its work is spread over the
+    chips."""
+    over = SMALL if arch_id != "dien" else None
+    with fake_mesh((2, 2), ("data", "model")) as mesh:
+        rec = dryrun_lib.run_cell(arch_id, shape_name, mesh, "2x2", over,
+                                  smoke=True)
+    assert rec["status"] == "ok", (rec.get("op"), rec.get("error"))
+    r = rec["roofline"]
+    assert r["chips"] == 4 and r["flops_per_chip"] > 0
+    assert sum(r["coll_breakdown"].values()) > 0
+
+
+def test_granite_full_cell_on_the_production_mesh():
+    """granite-moe-3b-a800m's train_4k at full CONFIG (256 x 4,096 tokens)
+    on 16x16 is ``ok``: 40 experts do not divide the model axis, so each
+    chip holds a sixteenth of every expert's capacity."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    with make_production_mesh() as mesh:
+        rec = dryrun_lib.run_cell("granite-moe-3b-a800m", "train_4k", mesh,
+                                  "single_pod_16x16")
+    assert rec["status"] == "ok", (rec.get("op"), rec.get("error"))
+    r = rec["roofline"]
+    assert r["flops_per_chip"] >= r["model_flops"] / 256 > 0
 
 
 def test_chunked_attention_runs_on_a_fake_mesh():

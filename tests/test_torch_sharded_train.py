@@ -6,7 +6,8 @@ the JAX package.
   4 gloo ranks (4 processes on the CPU) and run under the model's
   activation hints, equal the unsharded loss and gradients at rtol 1e-5 /
   atol 1e-6 (f32: the sharded products and reductions sum in other
-  orders).
+  orders). granite-moe SMOKE's and DIEN SMOKE's do too, the unsharded
+  run under the same policy (G = 2 MoE groups).
 * ``moe_apply`` grouped by data shard (G = 2, under a policy over a mesh
   whose data axis is 2) equals the reference's at G = 2 (run in a process
   of its own with 4 placeholder CPU devices) at rtol 1e-5 / atol 1e-6, and
@@ -43,42 +44,68 @@ SRC = str(REPO / "src")
 RANKS = 4
 TIMEOUT_S = 240
 
-#: one rank of the sharded run: gemma2-9b SMOKE's parameters (seed 0) and
-#: 4 x 32 tokens (seed 1), placed by the sharding rules on a (2, 2) mesh;
-#: loss and gradients, gathered whole, saved by rank 0
-WORKER = r"""
-import sys
+#: the cases of the sharded run, defined once for the ranks and the test:
+#: an arch's SMOKE parameters (seed 0) and a batch (seed 1) of 4 x 32
+#: tokens (an LM) or 8 rows (a recsys model)
+SAMPLE = r"""
+import dataclasses
 import numpy as np
 import torch
+from repro_torch.config.base import LMConfig, get_arch
+from repro_torch.models import api
+
+def sample(case):
+    # "arch" or "arch@E": the arch's SMOKE config with E experts and a
+    # vocabulary one short of its own
+    arch_id, _, experts = case.partition("@")
+    arch = get_arch(arch_id)
+    cfg = arch.smoke_config
+    if experts:
+        cfg = dataclasses.replace(cfg, vocab_size=cfg.vocab_size - 1,
+                                  moe=dataclasses.replace(
+                                      cfg.moe, n_experts=int(experts)))
+    params = api.model_api(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    if isinstance(cfg, LMConfig):
+        shape = arch.shape("train_4k")
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, size=(4, 32)).astype(np.int32))}
+    else:
+        shape = arch.shape("train_batch")
+        shape = dataclasses.replace(shape, params={**shape.params, "batch": 8})
+        batch = api.make_batch(cfg, shape, torch.Generator().manual_seed(1),
+                               "cpu")
+    return cfg, shape, params, batch
+"""
+
+#: one rank of the sharded run: a case of ``SAMPLE`` placed by the
+#: sharding rules on a (2, 2) mesh; loss and gradients, gathered whole,
+#: saved by rank 0
+WORKER = SAMPLE + r"""
+import sys
 import torch.distributed as dist
 from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.common.util import tree_flatten_with_path, tree_unflatten
-from repro_torch.config.base import get_arch
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.autoshard import activation_sharding
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import api
 
-rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+rank, port, out, arch_id = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                            sys.argv[4])
 dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                         rank=rank, world_size=4)
-arch = get_arch("gemma2-9b")
-cfg, shape = arch.smoke_config, arch.shape("train_4k")
-params = api.model_api(cfg).init(torch.Generator().manual_seed(0), "cpu")
-tokens = torch.from_numpy(np.random.default_rng(1).integers(
-    0, cfg.vocab_size, size=(4, 32)).astype(np.int32))
+cfg, shape, params, batch = sample(arch_id)
 with make_host_mesh(model=2, device="cpu") as mesh:
     paths, treedef = tree_flatten_with_path(params)
     specs = shd.spec_leaves(shd.param_specs(cfg, params, mesh))
     placed = tree_unflatten(treedef, [
         distribute_tensor(t, mesh, shd.to_placements(s, mesh))
         for (_, t), s in zip(paths, specs, strict=True)])
-    bspec = shd.batch_specs(cfg, shape, {"tokens": (tuple(tokens.shape),
-                                                    tokens.dtype)}, mesh)
-    batch = {"tokens": distribute_tensor(
-        tokens, mesh, shd.to_placements(bspec["tokens"], mesh))}
+    bspec = shd.batch_specs(cfg, shape, {k: (tuple(v.shape), v.dtype)
+                                         for k, v in batch.items()}, mesh)
+    batch = {k: distribute_tensor(v, mesh, shd.to_placements(bspec[k], mesh))
+             for k, v in batch.items()}
     with activation_sharding(mesh), implicit_replication():
         loss, _, grads = api.value_and_grad(api.model_api(cfg).loss, placed,
                                             batch)
@@ -99,12 +126,19 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_sharded_loss_and_gradients_equal_the_unsharded(tmp_path):
-    out = tmp_path / "grads.npz"
+def _sample(arch_id: str):
+    ns: dict = {}
+    exec(SAMPLE, ns)                     # noqa: S102 -- the ranks' cases
+    return ns["sample"](arch_id)
+
+
+def _sharded_run(arch_id: str, out) -> dict:
+    """The loss and gradients of ``arch_id``'s case on 4 gloo ranks."""
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r), str(port),
-                               str(out)], env=env, stdout=subprocess.PIPE,
+                               str(out), arch_id], env=env,
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(RANKS)]
     try:
@@ -113,22 +147,49 @@ def test_sharded_loss_and_gradients_equal_the_unsharded(tmp_path):
         for p in procs:
             p.kill()
     assert [p.returncode for p in procs] == [0] * RANKS, logs[0][-3000:]
-    got = dict(np.load(out))
+    return dict(np.load(out))
 
-    cfg = get_arch("gemma2-9b").smoke_config
-    params = api.model_api(cfg).init(torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, size=(4, 32)).astype(np.int32))
-    loss, _, grads = api.value_and_grad(api.model_api(cfg).loss, params,
-                                        {"tokens": tokens})
+
+def _assert_equal_to(got: dict, loss, grads, min_sharded: int) -> None:
     np.testing.assert_allclose(got.pop("__loss__"), loss.numpy(), rtol=1e-5)
-    assert int(got.pop("__sharded__")) >= 10     # most leaves are sharded
+    assert int(got.pop("__sharded__")) >= min_sharded
     flat = tree_flatten_with_path(grads)[0]
     assert sorted(got) == sorted("/".join(p) for p, _ in flat)
     for path, g in flat:
         np.testing.assert_allclose(got["/".join(path)], g.numpy(),
                                    rtol=1e-5, atol=1e-6,
                                    err_msg="/".join(path))
+
+
+def test_sharded_loss_and_gradients_equal_the_unsharded(tmp_path):
+    got = _sharded_run("gemma2-9b", tmp_path / "grads.npz")
+    cfg, _, params, batch = _sample("gemma2-9b")
+    loss, _, grads = api.value_and_grad(api.model_api(cfg).loss, params,
+                                        batch)
+    _assert_equal_to(got, loss, grads, 10)       # most leaves are sharded
+
+
+@pytest.mark.parametrize("arch_id,min_sharded", [
+    ("granite-moe-3b-a800m", 10), ("granite-moe-3b-a800m@5", 10),
+    ("dien", 1)])
+def test_moe_and_dien_sharded_loss_and_gradients_equal_the_unsharded(
+        arch_id, min_sharded, tmp_path):
+    """granite-moe SMOKE (the MoE dispatch and combine over data groups;
+    with 5 experts and a vocabulary of 255, which the model axis of 2
+    does not divide, the experts' capacity is split over it too, each
+    chip multiplying and summing its own slots, and each chip takes its
+    tokens' rows from the whole embedding) and DIEN SMOKE (its attention
+    product over a sharded batch) on 4 gloo ranks. The unsharded run is plain tensors under the same
+    policy, so that the MoE routes the same G = 2 groups (each group's own
+    capacity decides its drops)."""
+    got = _sharded_run(arch_id, tmp_path / "grads.npz")
+    cfg, _, params, batch = _sample(arch_id)
+    with fake_mesh((2, 2), ("data", "model")) as mesh, \
+            activation_sharding(mesh):
+        assert axis_size("dp") == 2
+        loss, _, grads = api.value_and_grad(api.model_api(cfg).loss,
+                                            params, batch)
+    _assert_equal_to(got, loss, grads, min_sharded)
 
 
 #: the reference's ``moe_apply`` under ``activation_sharding`` on a (2, 2)

@@ -110,7 +110,9 @@ def test_a_train_step_frees_the_previous_state_without_the_collector(name):
     the BST SMOKE tree frees the previous parameters, moments and
     gradients as soon as the step returns: no reference cycle holds them
     (on the card such a cycle kept a full-width tree and its moments,
-    ~14 GB for BST, alive into the next step)."""
+    ~14 GB for BST, alive into the next step). AdamW writes its moments
+    in place: the new state holds the very tensors given, and nothing
+    else of the previous state is alive."""
     import gc
     import weakref
 
@@ -119,13 +121,63 @@ def test_a_train_step_frees_the_previous_state_without_the_collector(name):
     batch = launch.data_iterator(cfg, 8, 1, device="cpu").__next__()
     step, opt = api.make_train_step(cfg)
     state = opt.init(params)
-    refs = [weakref.ref(t) for t in _leaves(params) + _leaves(state)]
+    kept = ({"m": state["m"], "v": state["v"]} if name == "adamw" else {})
+    kept_ids = [id(t) for t in _leaves(kept)]
+    refs = [weakref.ref(t) for t in _leaves(params) + _leaves(state)
+            if id(t) not in kept_ids]
+    del kept
     gc.disable()
     try:
         params, state, _ = step(params, state, batch)
         assert all(r() is None for r in refs)
+        if name == "adamw":
+            assert [id(t) for t in _leaves({"m": state["m"],
+                                            "v": state["v"]})] == kept_ids
     finally:
         gc.enable()
+
+
+@pytest.mark.parametrize("split_bytes", [0, opt_mod.SPLIT_BYTES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_a_layer_at_a_time_is_the_whole_leaf_arithmetic(dtype,
+                                                              split_bytes):
+    """AdamW updates a stacked leaf one leading slice at a time where its
+    f32 copy passes ``split_bytes`` (0: every stacked leaf), else whole,
+    writing the moments into the state's own tensors in place: two steps
+    on a [4, 3, 5, 6] leaf (and a [4, 6] one, always updated whole) equal
+    the whole-leaf arithmetic bit for bit, parameters and moments."""
+    b1, b2, eps, wd, lr = 0.9, 0.999, 1e-8, 0.01, 0.05
+    gen = torch.Generator().manual_seed(3)
+    params = {"stack": torch.randn((4, 3, 5, 6), generator=gen).to(dtype),
+              "norm": torch.randn((4, 6), generator=gen).to(dtype)}
+    opt = opt_mod.adamw(lr=lr, split_bytes=split_bytes)
+    state = opt.init(params)
+    moments = state["m"], state["v"]
+    want_p = dict(params)
+    want_m = {k: torch.zeros_like(p, dtype=torch.float32)
+              for k, p in params.items()}
+    want_v = {k: t.clone() for k, t in want_m.items()}
+    for c in (1, 2):
+        grads = {k: torch.randn(p.shape, generator=gen).to(dtype)
+                 for k, p in params.items()}
+        params, state = opt.update(grads, state, params)
+        cf = torch.tensor(float(c))
+        for k, g in grads.items():
+            g = g.to(torch.float32)
+            want_m[k] = b1 * want_m[k] + (1 - b1) * g
+            want_v[k] = b2 * want_v[k] + (1 - b2) * g * g
+            step = lr * (want_m[k] / (1 - b1 ** cf)
+                         / (torch.sqrt(want_v[k] / (1 - b2 ** cf)) + eps)
+                         + wd * want_p[k].to(torch.float32))
+            want_p[k] = (want_p[k].to(torch.float32) - step).to(dtype)
+    assert all(a is b for a, b in zip(_leaves((state["m"], state["v"])),
+                                      _leaves(moments)))   # in place
+    for k in params:
+        assert params[k].dtype == dtype
+        assert torch.equal(params[k], want_p[k]), k
+        assert torch.equal(state["m"][k], want_m[k]), k
+        assert torch.equal(state["v"][k], want_v[k]), k
+    assert int(state["count"]) == 2
 
 
 def test_adafactor_clips_each_layer_of_a_stack():

@@ -6,9 +6,10 @@ For the five LM archs' SMOKE configs (f32), with the reference's
 parameters (its ``init_lm``, carried across by ``params_from_numpy``) and
 tokens made with numpy from a seed: ``lm_forward``'s logits unchunked and
 chunked and ``lm_loss`` at rtol 1e-5 / atol 1e-5; the gradient of
-``lm_loss`` for gemma2-9b and kimi-k2 (every leaf at rtol 1e-4 / atol
-1e-5); one AdamW step of ``make_train_step`` for qwen1.5-0.5b at the
-recsys ranking path's tolerances; ``moe_apply`` for granite-moe and
+``lm_loss`` for gemma2-9b, kimi-k2 and granite-moe (every leaf at rtol
+1e-4 / atol 1e-5); one AdamW step of ``make_train_step`` for
+qwen1.5-0.5b at the recsys ranking path's tolerances, three for
+granite-moe; ``moe_apply`` for granite-moe and
 kimi-k2 at the default capacity factor and at 0.25 (tokens dropped): the
 output at rtol 1e-5 and the routing table (so the tokens dropped) equal.
 The reference's own LM tests (``tests/test_models_lm.py``) run on the
@@ -267,12 +268,15 @@ def test_lm_forward_defaults_to_chunked_from_2048_tokens(monkeypatch):
     assert seen == [2048] and calls == [1]
 
 
+GRAD_ARCHS = ["gemma2-9b", "kimi-k2-1t-a32b", "granite-moe-3b-a800m"]
+
+
 @pytest.fixture(scope="module")
 def grads_ref():
-    """The reference's loss and gradient for gemma2-9b and kimi-k2 SMOKE
-    on one batch, jitted once each."""
+    """The reference's loss and gradient for gemma2-9b, kimi-k2 and
+    granite-moe SMOKE on one batch, jitted once each."""
     out = {}
-    for arch_id in ("gemma2-9b", "kimi-k2-1t-a32b"):
+    for arch_id in GRAD_ARCHS:
         jcfg = jget_arch(arch_id).smoke_config
         jparams = jax.jit(japi.model_api(jcfg).init)(jax.random.key(2))
         tokens = _tokens(jcfg, 3)
@@ -284,7 +288,7 @@ def grads_ref():
     return out
 
 
-@pytest.mark.parametrize("arch_id", ["gemma2-9b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("arch_id", GRAD_ARCHS)
 def test_loss_gradients_match_reference(arch_id, grads_ref):
     npp, tokens, jloss, jgrads = grads_ref[arch_id]
     cfg = get_arch(arch_id).smoke_config
@@ -357,6 +361,47 @@ def test_train_step_matches_reference():
         n_tiny += int(tiny.sum())
     assert n_tiny == 128
     assert int(st["count"]) == 1 == int(jst["count"])
+
+
+def test_granite_adamw_steps_match_reference():
+    """Three AdamW steps of ``make_train_step`` on granite-moe SMOKE (the
+    MoE's dispatch and combine in the backward, AdamW its CONFIG's
+    optimizer), from the same parameters on the same three batches: each
+    step's loss at rtol 1e-5; after the third step every parameter within
+    1e-4 (1% of lr), except the entries whose first reference gradient is
+    nonzero and below ``near_zero`` = 1e-6, which AdamW's first update
+    moves by their last-bit noise (``test_train_step_matches_reference``
+    says why): those within 3 lr, three updates of about lr each. At this
+    seed the largest difference elsewhere is 3.2e-5 (the embedding) and
+    1,940 entries are near zero, 4.9e-4 apart at most."""
+    near_zero, lr = 1e-6, STEP_LR
+    arch_id = "granite-moe-3b-a800m"
+    jcfg = jget_arch(arch_id).smoke_config
+    cfg = get_arch(arch_id).smoke_config
+    assert cfg.optimizer == "adamw" == get_arch(arch_id).config.optimizer
+    jparams = jax.jit(japi.model_api(jcfg).init)(jax.random.key(4))
+    batches = [_tokens(cfg, 5 + i) for i in range(3)]
+    jg = _np_tree(jax.grad(lambda p: JT.lm_loss(
+        jcfg, p, {"tokens": jnp.asarray(batches[0])})[0])(jparams))
+    jstep, jopt = japi.make_train_step(jcfg, lr=lr)
+    jstep = jax.jit(jstep)
+    step, opt = api.make_train_step(cfg, lr=lr)
+    params = T.params_from_numpy(cfg, _np_tree(jparams), CPU)
+    jp, jst, st = jparams, jopt.init(jparams), opt.init(params)
+    for tokens in batches:
+        jp, jst, jm = jstep(jp, jst, {"tokens": jnp.asarray(tokens)})
+        params, st, m = step(params, st, {"tokens": torch.from_numpy(tokens)})
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+    g0 = dict(_named_leaves(jg))
+    for (name, a), (_, w) in zip(_named_leaves(params),
+                                 _named_leaves(_np_tree(jp))):
+        tiny = (np.abs(g0[name]) < near_zero) & (g0[name] != 0)
+        a = a.numpy()
+        np.testing.assert_allclose(a[~tiny], w[~tiny], rtol=0, atol=1e-4,
+                                   err_msg=name)
+        assert np.abs(a[tiny] - w[tiny]).max(initial=0.0) <= 3 * lr, name
+    assert int(st["count"]) == 3 == int(jst["count"])
 
 
 # -- MoE ----------------------------------------------------------------------
